@@ -8,19 +8,35 @@ builds every kernel from `mri2speech_tpu_torch/csrc/`, then:
 
 1. prints the card's name and power limit and the build time;
 2. compares each kernel with its plain PyTorch version on the card at the
-   shapes the main path gives it, and times kernel, plain version and a
-   library call that computes the same function (a yardstick only);
+   shapes the main paths give it, and times kernel, plain version and a
+   library call that computes the same function (a yardstick only):
+   K1 (BiLSTM recurrence), K3 (MRF stage, both entry points, at the four
+   stages of a 250-frame request plus ragged batch-2 cases) and K4 (MBConv
+   block, at its three B2 shapes with 256 frames), K3 and K4 in both operand
+   types (bf16, the path's, and fp32); the bf16 limit is set below a
+   control, the fp32-operand kernel against the bf16 plain version;
 3. serves a few requests through the full-width video -> speech pipeline
    (EfficientNetV2-B2, BiLSTM 640, HiFi-GAN 512 / rates 10,7,3,2; random
    weights from a seed, made in the JAX layout and carried across by
    `weights.py`), with every kernel's launch count set to 0 just before and
    read just after;
 4. runs one request on the card and on the CPU (plain versions) and compares;
-5. prints a JSON line of kernels and, last, {"ok": true, "device": {...}}.
+5. does 3 and 4 again for the fused serving configuration (same seeds):
+   `AcousticModel(fuse_ir=True)` and `Generator(h, fuse_mode=FUSED_MODE)`,
+   where every request must launch K1 once, K3 four times (v1 on stages 0-1,
+   v2 on stages 2-3) and K4 17 times (once per fused block); the fused
+   path's difference from the fp32 path is the control of its card-vs-CPU
+   limits and must fail them;
+6. profiles one warm 250-frame request of each path (device time by
+   kernel, the device's idle share), and times the host's weight-cache
+   checks of a fused request;
+7. prints a JSON line of kernels and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
-TF32 is off for matmuls and convolutions, so every number is fp32.
+TF32 is off for matmuls and convolutions: the unfused path is fp32 through
+and through; the fused path uses bf16 operands inside K3 and K4, as the TPU
+kernels do.
 """
 from __future__ import annotations
 
@@ -44,7 +60,27 @@ MEL_DB_TOL = 1e-2  # card vs CPU, dB: fp32 through ~60 conv layers summed in ano
 MEL_LOG_TOL = 2.5e-3
 AUDIO_TOL = 1e-4
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (NVIDIA data sheet)
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+FRAMES = 256       # the 250-frame request's bucket: the shapes K3 and K4 are timed at
+# K3/K4 kernel vs plain version on the card, as a fraction of max|plain|.
+# fp32 operands: sums in another order (FMAs vs cuDNN/cuBLAS). bf16 operands:
+# the same roundings, except where a reordered sum flips one (2^-8 relative).
+# The bf16 limit of each case is the smaller of REL_TOL and CONTROL_SHARE x the
+# control, the kernel with fp32 operands held against the bf16 plain version:
+# a kernel that skipped the bf16 rounding would sit at the control and fail.
+# On the H100 the control was 3.3x (K3 stage 0) to 9.4x the bf16 error; both
+# shrink with the stage's width (1.0e-4 and 3.4e-4 at C=256, 6.5e-6 and 5.0e-5
+# at C=32), so no one fixed limit lies between them in every case.
+REL_TOL = {"K3": {"bf16": 2e-4, "fp32": 1e-4}, "K4": {"bf16": 2e-4, "fp32": 1e-4}}
+CONTROL_SHARE = 0.5
+# fused card vs fused CPU, bf16 operands on both sides: ~10x what was seen on the
+# H100 (9.5e-6 dB, 2.4e-6, 5.6e-7). mel_db's limit sits below the gap between the
+# fused and the fp32 path on the card (6.1e-4 dB), and the script checks that
+# the gap fails it.
+FUSED_TOL = {"mel_db": 1e-4, "mel_log": 2.5e-5, "audio": 5e-6}
+# where the fused path's K4 blocks sit in B2, and how many of each shape a request runs
+K4_BLOCKS = (("s3", 3, 16, 3), ("s4", 4, 16, 5), ("s5", 5, 8, 9))  # (name, stage, H=W, count)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -89,6 +125,37 @@ def k1_bound(T: int, B: int):
     ops = 2 * T * B * 4 * H * H * 2
     nbytes = 4 * (2 * T * B * 4 * H + 2 * 4 * H * H + 2 * T * B * H + 2 * B * H)
     t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k3_bound(B: int, T: int, C: int, width: int, units: int = 3, k_sum: int = 21):
+    """Least time for one MRF stage with bf16 operands: (ms, "bytes" | "operations").
+
+    Operations: 2 convs x units x sum(k_j) taps of T x C x C multiply-adds per
+    batch row (252 T C^2 FLOPs), at the bf16 tensor-core peak. Bytes: the
+    input (width channels: C for v2, 3C for v1) read once, the output written
+    once, the bf16 taps and fp32 biases read once.
+    """
+    ops = 2 * units * k_sum * B * T * C * C * 2
+    nbytes = 4 * B * T * (width + C) + 2 * 2 * units * k_sum * C * C + 4 * 2 * units * 3 * C
+    t_ops, t_bytes = ops / BF16_PEAK, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k4_bound(N: int, HW: int, C: int, E: int, R: int):
+    """Least time for one MBConv block with bf16 operands: (ms, "bytes" | "operations").
+
+    Operations: the two 1x1 products and the two SE products on the bf16
+    tensor cores, and the depthwise 3x3 (9 multiply-adds per output) in fp32
+    on the CUDA cores; the two pipes can run at once, so the longer of the
+    two counts. Bytes: x read once, the output written once, the weights read
+    once.
+    """
+    mm = 2 * N * HW * 2 * C * E + 2 * N * 2 * E * R
+    dw = 2 * N * HW * 9 * E
+    nbytes = 2 * N * HW * C * 4 + 2 * (2 * C * E + 2 * E * R) + 4 * (9 * E + 3 * E + R + C)
+    t_ops = max(mm / BF16_PEAK, dw / FP32_PEAK)  # the two pipes run at once
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -147,10 +214,148 @@ def phase_k1(torch, bilstm):
     return cases
 
 
-def build_pipeline(device: str, seed: int):
-    """Full-width pipeline with random JAX-layout weights carried across by weights.py."""
+def _rel_err(got, ref) -> float:
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def _hold(kernel: str, tag: str, run, plain) -> dict:
+    """Hold a kernel against its plain version in both operand types, with a control.
+
+    run(dtype) and plain(dtype) give the kernel's and the plain version's
+    outputs. The control is the kernel with fp32 operands held against the
+    bf16 plain version; the bf16 limit is the smaller of REL_TOL and
+    CONTROL_SHARE x the control, so bf16 operands are told apart from fp32 ones.
+    """
+    import torch
+
+    got = {name: run(dtype) for name, dtype in (("bf16", torch.bfloat16),
+                                                 ("fp32", torch.float32))}
+    ref = {name: plain(dtype) for name, dtype in (("bf16", torch.bfloat16),
+                                                   ("fp32", torch.float32))}
+    torch.cuda.synchronize()
+    out = {"control": _rel_err(got["fp32"], ref["bf16"])}
+    limit = {"bf16": min(REL_TOL[kernel]["bf16"], CONTROL_SHARE * out["control"]),
+             "fp32": REL_TOL[kernel]["fp32"]}
+    for name in ("bf16", "fp32"):
+        check(bool(torch.isfinite(got[name]).all()), f"{kernel} {tag} {name}: not finite")
+        out[name] = ((got[name] - ref[name]).abs().max().item(), _rel_err(got[name], ref[name]))
+        check(out[name][1] <= limit[name],
+              f"{kernel} {tag} {name}: error {out[name][1]} x max|ref| > {limit[name]}")
+    print(f"[{kernel.lower()}] {tag}: max|err| bf16 {out['bf16'][0]:.3e} ({out['bf16'][1]:.2e} "
+          f"x max|ref|, limit {limit['bf16']:.2e}), fp32 {out['fp32'][0]:.3e} "
+          f"({out['fp32'][1]:.2e}, limit {limit['fp32']:g}); control, fp32-operand kernel vs "
+          f"bf16 plain: {out['control']:.2e} x max|ref|", flush=True)
+    return out
+
+
+def phase_k3(torch, mrf, gen):
+    """K3 at the four MRF stages of a 250-frame request, plus ragged batch-2 cases.
+
+    Weights: the full-width generator's own stages (seeded). Each entry point
+    runs in the generator's (B, C, T) layout as the fused path calls it, is held
+    against the plain version in both operand types, and is timed in bf16:
+    kernel, plain version, and the port's unfused fp32 ResBlock1 stack
+    through cuDNN (the library yardstick, which the fused path never calls).
+    """
+    from mri2speech_tpu_torch.models.vocoder import FUSED_MODE
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    h = gen.h
+    nk = len(h["resblock_kernel_sizes"])
+    cases, T = [], FRAMES
+    for i, (rate, mode) in enumerate(zip(h["upsample_rates"], FUSED_MODE)):
+        T *= rate
+        w = gen.stage_weights(i)
+        C = w.channels
+        tiled = mode == "pallas"
+        fn = mrf.mrf_stage_pallas if tiled else mrf.mrf_stage_pallas_v2
+        name = fn.__name__
+        x = (torch.randn(1, C, T, generator=g) * 0.5).cuda()
+        xin = x.repeat(1, nk, 1) if tiled else x
+
+        def kernel(dtype=torch.bfloat16):
+            return fn(xin, w, channels=C, kernels=w.kernels, dils=w.dils, mxu_dtype=dtype,
+                      layout="bct")
+
+        errs = _hold("K3", f"{name} stage {i} B=1 T={T} C={C}", kernel,
+                     lambda dtype: mrf.mrf_stage_reference(x, w, dtype))
+        blocks = list(gen.resblocks[i * nk:(i + 1) * nk])
+        with torch.inference_mode():
+            kernel_ms = cuda_ms(kernel)
+            fp32_ms = cuda_ms(lambda: kernel(torch.float32), reps=5)
+            plain_ms = cuda_ms(lambda: mrf.mrf_stage_reference(x, w, torch.bfloat16), reps=5)
+            library_ms = cuda_ms(lambda: sum(b(x) for b in blocks) / nk)
+        bound_ms, bound_by = k3_bound(1, T, C, nk * C if tiled else C)
+        cases.append(dict(name=name, stage=i, B=1, T=T, C=C, err_bf16=errs["bf16"][0],
+                          err_fp32=errs["fp32"][0], control=errs["control"],
+                          kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        print(f"[k3] {name} stage {i} B=1 T={T} C={C}: kernel bf16 {kernel_ms:.4f} ms, fp32 "
+              f"operands {fp32_ms:.4f} ms, plain (bf16) {plain_ms:.4f} ms, unfused ResBlock1 "
+              f"stack fp32 cuDNN {library_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})",
+              flush=True)
+    # ragged, several time tiles, batch 2, in the JAX (B, T, C) layout
+    for i, fn, B, T in ((1, mrf.mrf_stage_pallas, 2, 1000), (3, mrf.mrf_stage_pallas_v2, 2, 3001)):
+        w = gen.stage_weights(i)
+        C = w.channels
+        tiled = fn is mrf.mrf_stage_pallas
+        x = (torch.randn(B, T, nk * C if tiled else C, generator=g) * 0.5).cuda()
+        xt = x.transpose(1, 2)
+        xs = [xt[:, j * C:(j + 1) * C] for j in range(nk)] if tiled else xt
+        errs = _hold(
+            "K3", f"{fn.__name__} ragged B={B} T={T} C={C} (B, T, C) layout",
+            lambda dtype: fn(x, w, channels=C, kernels=w.kernels, dils=w.dils, mxu_dtype=dtype),
+            lambda dtype: mrf.mrf_stage_reference(xs, w, dtype).transpose(1, 2))
+        cases.append(dict(name=fn.__name__, stage=i, B=B, T=T, C=C, err_bf16=errs["bf16"][0],
+                          err_fp32=errs["fp32"][0], control=errs["control"]))
+    return cases
+
+
+def phase_k4(torch, mbconv, model):
+    """K4 at its three B2 block shapes with 256 frames, in both operand types.
+
+    Weights: the full-width encoder's own blocks s3_b1, s4_b1, s5_b1
+    (seeded), BatchNorm folded. Timed in bf16: kernel, plain version, and the
+    unfused fp32 InvertedResidual through cuDNN (the library yardstick).
+    """
+    g = torch.Generator(device="cpu").manual_seed(4)
+    cases = []
+    for name, si, hw, count in K4_BLOCKS:
+        block = model.cnn.backbone.blocks[si][1]
+        w = mbconv.MBConvWeights.from_block(block)
+        C, E, R = w.dims
+        x = (torch.randn(FRAMES, C, hw, hw, generator=g) * 0.5).cuda()
+        errs = _hold(
+            "K4", f"{name} N={FRAMES} {hw}x{hw} C={C} E={E} R={R}",
+            lambda dtype: mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype, layout="nchw"),
+            lambda dtype: mbconv.mbconv_block_reference(x, w, dtype))
+        with torch.inference_mode():
+            kernel_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(x, w, layout="nchw"))
+            fp32_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(
+                x, w, mxu_dtype=torch.float32, layout="nchw"), reps=5)
+            plain_ms = cuda_ms(lambda: mbconv.mbconv_block_reference(x, w, torch.bfloat16))
+            library_ms = cuda_ms(lambda: block(x))
+        bound_ms, bound_by = k4_bound(FRAMES, hw * hw, C, E, R)
+        cases.append(dict(name=name, count=count, N=FRAMES, HW=hw * hw, C=C, E=E, R=R,
+                          err_bf16=errs["bf16"][0], err_fp32=errs["fp32"][0],
+                          control=errs["control"], kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms,
+                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by))
+        print(f"[k4] {name} (x{count} per request) N={FRAMES} {hw}x{hw} C={C} E={E} R={R}: "
+              f"kernel bf16 {kernel_ms:.4f} ms, fp32 operands {fp32_ms:.4f} ms, plain (bf16) "
+              f"{plain_ms:.4f} ms, unfused InvertedResidual fp32 cuDNN {library_ms:.4f} ms; "
+              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    return cases
+
+
+def build_pipeline(device: str, seed: int, fused: bool = False):
+    """Full-width pipeline with random JAX-layout weights carried across by weights.py.
+
+    fused: the fused serving configuration (fuse_ir, FUSED_MODE) on the same weights.
+    """
     from mri2speech_tpu_torch.config import default_vocoder_config
     from mri2speech_tpu_torch.infer.pipeline import VideoToSpeechPipeline
+    from mri2speech_tpu_torch.models.vocoder import FUSED_MODE
     from mri2speech_tpu_torch.ops.scaler import MelScaler
     from mri2speech_tpu_torch.weights import (
         acoustic_model_from_jax,
@@ -161,8 +366,10 @@ def build_pipeline(device: str, seed: int):
 
     h = dict(default_vocoder_config())
     params, stats = random_acoustic_params(seed, rnn_hidden=H)
-    model = acoustic_model_from_jax(params, stats, rnn_hidden=H, lstm_impl="kernel")
-    gen = generator_from_jax(random_generator_params(h, seed + 1), h)
+    model = acoustic_model_from_jax(params, stats, rnn_hidden=H, lstm_impl="kernel",
+                                    fuse_ir=fused)
+    gen = generator_from_jax(random_generator_params(h, seed + 1), h,
+                             fuse_mode=FUSED_MODE if fused else None)
     scaler = MelScaler(mean=np.linspace(-40, -10, 64).astype(np.float32),
                        std=np.full(64, 5.0, np.float32))
     hop = int(np.prod(h["upsample_rates"]))
@@ -200,16 +407,40 @@ def stage_ms(torch, pipe, frames, reps: int = 3):
     return {n: statistics.median(v) for n, v in runs.items()}
 
 
-def phase_pipeline(torch, bilstm, pipe, rng):
-    """Serve requests through the port's main path; K1 must launch once per request.
+def read_launches() -> dict:
+    """Each kernel entry point's launch count, by the name in the `kernels` line."""
+    from mri2speech_tpu_torch.ops import bilstm, mbconv, mrf
 
-    Each single-video request runs twice: the first call meets a new padded
-    length (cold: cuDNN picks algorithms for the new shapes), the second is warm.
+    return {"bilstm_recurrence": bilstm.launches, **mrf.launches,
+            "mbconv_block_pallas": mbconv.launches}
+
+
+def reset_launches() -> None:
+    from mri2speech_tpu_torch.ops import bilstm, mbconv, mrf
+
+    bilstm.launches = mbconv.launches = 0
+    for name in mrf.launches:
+        mrf.launches[name] = 0
+
+
+def _check_counts(per_request: dict, n_requests: int, tag: str) -> None:
+    for name, n in read_launches().items():
+        check(n == per_request[name] * n_requests,
+              f"{tag}: {name} launches {n} != {per_request[name]} x {n_requests} requests")
+
+
+def phase_pipeline(torch, per_request, pipe, rng, tag: str):
+    """Serve requests through one of the port's paths; check each kernel's launches.
+
+    per_request: {entry point: launches per request}. Every count is set to 0
+    just before the requests and read just after. Each single-video request
+    runs twice: the first call meets a new padded length (cold: cuDNN picks
+    algorithms for the new shapes), the second is warm.
     """
     pipe(video(rng, 32))  # warm-up: CUDA context, allocator, the 64-frame bucket
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bilstm.launches = 0
+    reset_launches()
     n_requests = 0
     for T in (250, 180, 64):
         frames = video(rng, T)
@@ -224,9 +455,9 @@ def phase_pipeline(torch, bilstm, pipe, rng):
             check(mel_db.shape == mel_log.shape == (T, 64), f"mel shape {mel_db.shape}")
             for name, a in (("audio", audio), ("mel_db", mel_db), ("mel_log", mel_log)):
                 check(bool(np.isfinite(a).all()), f"{name} not finite for T={T}")
-            check(bilstm.launches == n_requests, f"K1 launches {bilstm.launches} != {n_requests}")
+            _check_counts(per_request, n_requests, tag)
         seconds_audio = len(audio) / SR
-        print(f"[pipeline] __call__ T={T}: cold {walls[0] * 1e3:.2f} ms, warm "
+        print(f"[{tag}] __call__ T={T}: cold {walls[0] * 1e3:.2f} ms, warm "
               f"{walls[1] * 1e3:.2f} ms wall (device-synchronised); warm RTF "
               f"{walls[1] / seconds_audio:.5f} at sr={SR}; max|audio| {np.abs(audio).max():.4f}",
               flush=True)
@@ -242,41 +473,166 @@ def phase_pipeline(torch, bilstm, pipe, rng):
         for T, a, m in zip(lengths, audios, mels):
             check(a.shape == (T * pipe.hop_total,) and m.shape == (T, 64), "infer_batch shapes")
             check(bool(np.isfinite(a).all() and np.isfinite(m).all()), "infer_batch not finite")
-    launches = bilstm.launches
-    check(launches == n_requests, f"K1 launches {launches} != {n_requests}")
+    _check_counts(per_request, n_requests, tag)
+    launches = read_launches()
     seconds_audio = sum(lengths) * pipe.hop_total / SR
-    print(f"[pipeline] infer_batch T={list(lengths)}: cold {walls[0] * 1e3:.2f} ms, warm "
+    print(f"[{tag}] infer_batch T={list(lengths)}: cold {walls[0] * 1e3:.2f} ms, warm "
           f"{walls[1] * 1e3:.2f} ms wall; warm RTF {walls[1] / seconds_audio:.5f} over "
           f"{seconds_audio:.2f} s of audio", flush=True)
-    print(f"[pipeline] torch.cuda.max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-          f"K1 launches on the main path: {launches} for {n_requests} requests", flush=True)
+    print(f"[{tag}] torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; kernel launches on this path "
+          f"for {n_requests} requests: " + ", ".join(f"{k} {v}" for k, v in launches.items()),
+          flush=True)
     stages = stage_ms(torch, pipe, video(rng, 250))
-    print("[pipeline] device time by stage, T=250 (bucket 256), warm: " + ", ".join(
+    print(f"[{tag}] device time by stage, T=250 (bucket 256), warm: " + ", ".join(
         f"{n} {v:.3f} ms" for n, v in stages.items()) + f"; sum {sum(stages.values()):.3f} ms",
         flush=True)
-    return launches
+    return dict(launches=launches, n_requests=n_requests)
 
 
-def phase_card_vs_cpu(torch, pipe, rng):
-    """One 70-frame request through the same weights on the card and on the CPU."""
-    frames = video(rng, 70)
-    a_gpu, db_gpu, log_gpu = pipe(frames)
-    t0 = time.perf_counter()
-    a_cpu, db_cpu, log_cpu = build_pipeline("cpu", seed=0)(frames)
-    cpu_s = time.perf_counter() - t0
-    diffs = {
-        "mel_db": (float(np.abs(db_gpu - db_cpu).max()), MEL_DB_TOL),
-        "mel_log": (float(np.abs(log_gpu - log_cpu).max()), MEL_LOG_TOL),
-        "audio": (float(np.abs(a_gpu - a_cpu).max()), AUDIO_TOL),
-    }
-    for name, (d, tol) in diffs.items():
-        print(f"[card-vs-cpu] T=70 max|{name} card - {name} cpu| = {d:.3e} (tol {tol:g})",
+KERNEL_GROUPS = (  # substrings of kernel names -> the port's kernel they belong to
+    ("bilstm_step_kernel", "K1 bilstm_recurrence"),
+    ("causal_conv_kernel", "K3 mrf_stage: convs"),
+    ("branch_mean_kernel", "K3 mrf_stage: branch mean"),
+    ("mbconv_expand_kernel", "K4 mbconv_block: pass 1 (pw, dw, pool)"),
+    ("mbconv_project_kernel", "K4 mbconv_block: pass 2 (SE gate, pwl)"),
+)
+
+
+def phase_profile(torch, pipe, frames, tag: str):
+    """Device time by kernel over one warm request (torch.profiler), and the idle share.
+
+    Busy time is the sum of the kernels' device times (one stream, so they do
+    not overlap); the idle share is 1 - busy / the request's wall time.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(frames)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        group = next((g for key, g in KERNEL_GROUPS if key in e.key), "library and aten kernels")
+        n, t = groups.get(group, (0, 0.0))
+        groups[group] = (n + e.count, t + us / 1e3)
+    busy = sum(t for _, t in groups.values())
+    if busy <= 0:
+        print(f"[{tag}] torch.profiler recorded no device time: by-kernel time not measured",
               flush=True)
-        check(d <= tol, f"card vs CPU {name}: {d} > {tol}")
-    print(f"[card-vs-cpu] max|audio| {np.abs(a_cpu).max():.4f}; CPU request "
+        return None
+    print(f"[{tag}] one warm T={frames.shape[0]} request under torch.profiler: wall "
+          f"{wall_ms:.2f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; "
+          "by kernel: " + "; ".join(f"{g} {t:.3f} ms ({n} launches)" for g, (n, t) in
+                                     sorted(groups.items(), key=lambda kv: -kv[1][1])),
+          flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy, groups=groups)
+
+
+def weight_cache_check(pipe, reps: int = 50) -> float:
+    """Host time a fused request spends checking its kernel-layout weight caches.
+
+    Every fused block and stage asks its `DerivedWeights` whether a parameter
+    was replaced, moved or changed since the copy was built; this times those
+    checks alone, with the caches warm (median of `reps`).
+    """
+    from mri2speech_tpu_torch.models.effnetv2 import FusedMBConv
+    from mri2speech_tpu_torch.models.vocoder import KERNEL_MODES
+
+    blocks = [m for m in pipe.acoustic_model.modules() if isinstance(m, FusedMBConv)]
+    gen = pipe.generator
+    stages = [i for i, m in enumerate(gen.fuse_modes) if m in KERNEL_MODES]
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for b in blocks:
+            b.folded_weights()
+        for i in stages:
+            gen.stage_weights(i)
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    print(f"[weight-cache] fused request: {len(blocks)} blocks + {len(stages)} stages check "
+          f"their weight caches in {ms:.4f} ms of host time (median of {reps})", flush=True)
+    return ms
+
+
+def phase_card_vs_cpu(pipe, frames, tol, tag: str, fused: bool = False):
+    """One request through the same weights on the card and on the CPU (plain versions)."""
+    card = pipe(frames)
+    t0 = time.perf_counter()
+    cpu = build_pipeline("cpu", seed=0, fused=fused)(frames)
+    cpu_s = time.perf_counter() - t0
+    T = frames.shape[0]
+    for name, c, r in zip(("audio", "mel_db", "mel_log"), card, cpu):
+        d = float(np.abs(c - r).max())
+        print(f"[{tag}] T={T} max|{name} card - {name} cpu| = {d:.3e} (tol {tol[name]:g})",
+              flush=True)
+        check(d <= tol[name], f"{tag} {name}: {d} > {tol[name]}")
+    print(f"[{tag}] max|audio| {np.abs(cpu[0]).max():.4f}; CPU request "
           f"(build included) {cpu_s:.1f} s", flush=True)
-    return diffs
+    return card
+
+
+def _per_request(cases, key):
+    return sum(c[key] * c.get("count", 1) for c in cases)
+
+
+def kernel_rows(k1_cases, k3_cases, k4_cases, unfused, fused):
+    """The `kernels` JSON line: each entry point at the main paths' shapes.
+
+    K1 at T=256 (one launch per request). K3 and K4: the sum over the shapes
+    one 250-frame request gives the entry point (K3 v1: stages 0-1, v2: stages
+    2-3; K4: 3 + 5 + 9 blocks), so ms, plain_ms, library_ms and bound_ms are
+    per request. launches: the count on the path that runs the kernel, with
+    both paths' counts beside it.
+    """
+    k1 = next(c for c in k1_cases if c["T"] == 256)
+    rows = [{
+        "name": "bilstm_recurrence", "route": "cuda",
+        "source": "mri2speech_tpu_torch/csrc/bilstm_recurrence.cu",
+        "replaces": "mri2speech_tpu/ops/pallas_lstm.py:304",
+        "launches": unfused["launches"]["bilstm_recurrence"],
+        "launches_by_path": {p["tag"]: p["launches"]["bilstm_recurrence"]
+                             for p in (unfused, fused)},
+        "max_abs_err": max(max(c["err_real"], c["err_pad"]) for c in k1_cases),
+        "ms": k1["kernel_ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+        "shape": {"T": k1["T"], "B": k1["B"], "H": H},
+    }]
+    for name, replaces in (("mrf_stage_pallas", "mri2speech_tpu/ops/pallas_mrf.py:352"),
+                           ("mrf_stage_pallas_v2", "mri2speech_tpu/ops/pallas_mrf.py:259"),
+                           ("mbconv_block_pallas", "mri2speech_tpu/ops/pallas_mbconv.py:128")):
+        is_k3 = name.startswith("mrf")
+        all_cases = [c for c in k3_cases if c["name"] == name] if is_k3 else k4_cases
+        path = [c for c in all_cases if "kernel_ms" in c]
+        bound_by = max(("operations", "bytes"), key=lambda b: sum(
+            c["bound_ms"] * c.get("count", 1) for c in path if c["bound_by"] == b))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "mri2speech_tpu_torch/csrc/"
+                      + ("mrf_stage.cu" if is_k3 else "mbconv_block.cu"),
+            "replaces": replaces,
+            "launches": fused["launches"][name],
+            "launches_by_path": {p["tag"]: p["launches"][name] for p in (unfused, fused)},
+            "max_abs_err": max(c["err_bf16"] for c in all_cases),
+            "max_abs_err_fp32_operands": max(c["err_fp32"] for c in all_cases),
+            "min_control_rel": min(c["control"] for c in all_cases),
+            "ms": _per_request(path, "kernel_ms"), "kernel_ms": _per_request(path, "kernel_ms"),
+            "kernel_fp32_operands_ms": _per_request(path, "kernel_fp32_ms"),
+            "plain_ms": _per_request(path, "plain_ms"), "bound_ms": _per_request(path, "bound_ms"),
+            "bound_by": bound_by, "library_ms": _per_request(path, "library_ms"),
+            "per": "250-frame request (bucket 256), bf16 operands",
+            "shape": [{k: c[k] for k in ("B", "T", "C", "N", "HW", "E", "R", "count") if k in c}
+                      for c in path],
+        })
+    return rows
 
 
 def main() -> int:
@@ -290,14 +646,14 @@ def main() -> int:
         print(f"chip_smoke: no mri2speech_tpu_torch package beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from mri2speech_tpu_torch.ops import _build, bilstm
+    from mri2speech_tpu_torch.ops import _build, bilstm, mbconv, mrf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
-          "TF32 off for matmul and cuDNN (all fp32)", flush=True)
+          "TF32 off for matmul and cuDNN", flush=True)
 
     t0 = time.perf_counter()
     sources = _build.all_sources()
@@ -307,28 +663,40 @@ def main() -> int:
     print(f"[build] {', '.join(s + '.cu' for s in sources)} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    cases = phase_k1(torch, bilstm)
+    k1_cases = phase_k1(torch, bilstm)
     rng = np.random.default_rng(0)
     pipe = build_pipeline("cuda", seed=0)
-    launches = phase_pipeline(torch, bilstm, pipe, rng)
-    phase_card_vs_cpu(torch, pipe, rng)
+    k3_cases = phase_k3(torch, mrf, pipe.generator)
+    k4_cases = phase_k4(torch, mbconv, pipe.acoustic_model)
 
-    main_case = next(c for c in cases if c["T"] == 256)  # the 250-frame request's bucket
-    kernels = [{
-        "name": "bilstm_recurrence",
-        "route": "cuda",
-        "source": "mri2speech_tpu_torch/csrc/bilstm_recurrence.cu",
-        "replaces": "mri2speech_tpu/ops/pallas_lstm.py:304",
-        "launches": launches,
-        "max_abs_err": max(max(c["err_real"], c["err_pad"]) for c in cases),
-        "ms": main_case["kernel_ms"],
-        "kernel_ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": {"T": main_case["T"], "B": main_case["B"], "H": H},
-    }]
+    names = ("bilstm_recurrence", "mrf_stage_pallas", "mrf_stage_pallas_v2", "mbconv_block_pallas")
+    unfused = phase_pipeline(torch, dict(zip(names, (1, 0, 0, 0))), pipe, rng, "pipeline")
+    unfused["tag"] = "unfused"
+    frames70 = video(rng, 70)
+    card_unfused = phase_card_vs_cpu(
+        pipe, frames70, {"mel_db": MEL_DB_TOL, "mel_log": MEL_LOG_TOL, "audio": AUDIO_TOL},
+        "card-vs-cpu")
+
+    fused_pipe = build_pipeline("cuda", seed=0, fused=True)
+    # per request: K1 once, K3 v1 on stages 0-1 and v2 on stages 2-3, K4 on 17 blocks
+    fused = phase_pipeline(torch, dict(zip(names, (1, 2, 2, 17))), fused_pipe, rng,
+                           "fused-pipeline")
+    fused["tag"] = "fused"
+    card_fused = phase_card_vs_cpu(fused_pipe, frames70, FUSED_TOL, "fused-card-vs-cpu",
+                                   fused=True)
+    gaps = {n: float(np.abs(a - b).max())
+            for n, a, b in zip(("audio", "mel_db", "mel_log"), card_fused, card_unfused)}
+    print("[fused-vs-unfused] T=70 on the card, bf16 operands in K3/K4 vs fp32 throughout "
+          "(the control of the fused card-vs-CPU limits): " + ", ".join(
+              f"max|{n} diff| {d:.3e}" for n, d in gaps.items()), flush=True)
+    check(gaps["mel_db"] > FUSED_TOL["mel_db"],
+          f"fused vs fp32 path differ by {gaps['mel_db']} dB, within the fused card-vs-CPU "
+          f"limit {FUSED_TOL['mel_db']}: that limit cannot tell bf16 operands from fp32")
+    frames250 = video(rng, 250)
+    phase_profile(torch, pipe, frames250, "profile-unfused")
+    phase_profile(torch, fused_pipe, frames250, "profile-fused")
+    weight_cache_check(fused_pipe)
+    kernels = kernel_rows(k1_cases, k3_cases, k4_cases, unfused, fused)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,6 +25,7 @@ class AcousticModel(nn.Module):
     """CNN-BiLSTM; input (B, T, 1, H, W) or (B, T, H, W) -> (B, T, n_mels).
 
     lstm_impl: "kernel" (serving: `ops/bilstm.py`) or "scan" (plain loop).
+    fuse_ir: the eligible ir blocks through the MBConv kernel (`models/effnetv2.py`).
     """
 
     def __init__(
@@ -35,11 +36,13 @@ class AcousticModel(nn.Module):
         cnn_spec: Optional[Sequence[StageSpec]] = None,
         cnn_stem: Optional[int] = None,
         lstm_impl: str = "kernel",
+        fuse_ir: bool = False,
     ) -> None:
         super().__init__()
         self.cnn = EffNetV2Features(
             EFFNETV2_B2_SPEC if cnn_spec is None else tuple(cnn_spec),
             EFFNETV2_B2_STEM if cnn_stem is None else cnn_stem,
+            fuse_ir=fuse_ir,
         )
         self.rnn = BiLSTMSumMerge(self.cnn.out_channels, rnn_hidden, impl=lstm_impl)
         self.drop = nn.Dropout(dropout)

@@ -6,9 +6,16 @@ PyTorch's NCHW layout. TF-SAME padding is computed per input size (PyTorch's
 an even input pads (0, 1). BatchNorm eps 1e-3. The SE reduced width is the
 block's input channels x 0.25.
 
+``fuse_ir=True`` runs every stride-1, channel-preserving, 3x3 SE block of
+an ``ir`` stage (17 of the 20 in B2) as :class:`FusedMBConv`: BatchNorm
+folded, the whole block through the MBConv kernel (`ops/mbconv.py`) with
+bf16 operands, as the JAX package's `_FusedMBConv` does on the TPU. The
+parameters and state_dict keys do not change.
+
 Not ported: the JAX package's `stem_s2d` and `pad_ir` (exact TPU rewrites
-over the same parameters) and `fuse_ir` (the Pallas MBConv kernel, still to
-be ported). The stem runs on the 1->3 channel broadcast.
+over the same parameters; `pad_ir` takes precedence over `fuse_ir` there,
+so compare with ``pad_ir=False``). The stem runs on the 1->3 channel
+broadcast.
 """
 from __future__ import annotations
 
@@ -18,6 +25,9 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mri2speech_tpu_torch.models.layers import DerivedWeights, module_tensors
+from mri2speech_tpu_torch.ops import mbconv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,11 +151,41 @@ class InvertedResidual(nn.Module):
         return y + x if self.has_skip else y
 
 
+class FusedMBConv(InvertedResidual):
+    """A stride-1, channel-preserving 3x3 SE block through the MBConv kernel.
+
+    The same submodules as :class:`InvertedResidual`, so it loads the same
+    state_dict. The forward folds the BatchNorms (once, and again whenever a
+    weight or statistic changes) and runs `ops/mbconv.py` with bf16
+    operands. An inference transform: it raises in training mode.
+    """
+
+    def __init__(self, channels: int, expand: int, se_ratio: float) -> None:
+        super().__init__(channels, channels, 3, 1, expand, se_ratio)
+        self._folded = DerivedWeights()
+
+    def folded_weights(self) -> mbconv.MBConvWeights:
+        """The BN-folded weights (rebuilt when a parameter or buffer changes)."""
+        return self._folded.get(module_tensors(self), lambda: mbconv.MBConvWeights.from_block(self))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise RuntimeError("FusedMBConv is an inference transform; call .eval() first")
+        return mbconv.mbconv_block_pallas(x.contiguous(), self.folded_weights(), layout="nchw")
+
+
+def _fusable(st: StageSpec, cin: int, stride: int) -> bool:
+    """Where the JAX package's fuse_ir puts `_FusedMBConv` (`effnetv2.py:495-502`)."""
+    return (st.block == "ir" and stride == 1 and cin == st.channels and st.kernel == 3
+            and st.se_ratio > 0)
+
+
 class EffNetV2Backbone(nn.Module):
     """Stem + stages; (N, 3, H, W) -> last-stage map (N, C, H/32, W/32)."""
 
     def __init__(self, spec: Sequence[StageSpec] = EFFNETV2_B2_SPEC,
-                 stem_channels: int = EFFNETV2_B2_STEM, in_channels: int = 3) -> None:
+                 stem_channels: int = EFFNETV2_B2_STEM, in_channels: int = 3,
+                 fuse_ir: bool = False) -> None:
         super().__init__()
         self.conv_stem = Conv2dSame(in_channels, stem_channels, 3, 2)
         self.bn1 = _bn(stem_channels)
@@ -159,6 +199,8 @@ class EffNetV2Backbone(nn.Module):
                     blk = ConvBnAct(cin, st.channels, st.kernel, stride)
                 elif st.block == "er":
                     blk = EdgeResidual(cin, st.channels, st.kernel, stride, st.expand)
+                elif fuse_ir and _fusable(st, cin, stride):
+                    blk = FusedMBConv(st.channels, st.expand, st.se_ratio)
                 elif st.block == "ir":
                     blk = InvertedResidual(
                         cin, st.channels, st.kernel, stride, st.expand, st.se_ratio
@@ -182,9 +224,9 @@ class EffNetV2Features(nn.Module):
     """Wrapper whose `backbone` carries the timm names (`cnn.backbone.*`)."""
 
     def __init__(self, spec: Sequence[StageSpec] = EFFNETV2_B2_SPEC,
-                 stem_channels: int = EFFNETV2_B2_STEM) -> None:
+                 stem_channels: int = EFFNETV2_B2_STEM, fuse_ir: bool = False) -> None:
         super().__init__()
-        self.backbone = EffNetV2Backbone(spec, stem_channels)
+        self.backbone = EffNetV2Backbone(spec, stem_channels, fuse_ir=fuse_ir)
 
     @property
     def out_channels(self) -> int:

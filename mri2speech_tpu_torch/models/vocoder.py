@@ -1,21 +1,54 @@
 """HiFi-GAN generator (the fork's semantics), inference side.
 
-Counterpart of `mri2speech_tpu/models/vocoder.py:44-99, 316-455`: mel
-(B, n_mels, T) -> waveform (B, 1, T * prod(upsample_rates)). The three MRF
-branches of each stage run unfused; the JAX package's dense/grouped fusions
-are TPU lane-packing rewrites with the same output.
+Counterpart of `mri2speech_tpu/models/vocoder.py:44-99, 168-182, 264-455`:
+mel (B, n_mels, T) -> waveform (B, 1, T * prod(upsample_rates)).
+
+``fuse_mode`` picks, per upsample stage, how its MRF branches run (a string
+for every stage, or one entry per stage, as in the JAX package):
+
+* ``"none"``, ``"dense"``, ``"grouped"``: the three ResBlocks, unfused, in
+  fp32. The JAX package's dense and grouped fusions are TPU lane-packing
+  rewrites with the same output, so they run the same code here.
+* ``"pallas"`` / ``"pallas2"``: the whole stage through the MRF kernel
+  (`ops/mrf.py`), its v1 entry point on the branch-tiled state or its v2
+  entry point on the compact one, with bf16 operands as on the TPU. An
+  inference transform: it raises in training mode.
+
+:data:`FUSED_MODE` is the fused serving configuration: v1 on the two wide
+stages, v2 on the two narrow ones. The state_dict keys are the same in every
+mode (``resblocks.{i*3+j}.convs{1,2}.{u}``); the fused stages convert their
+weights to the kernel's layout on first use and again whenever they change.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mri2speech_tpu_torch.models.layers import Conv1d, causal_conv1d
+from mri2speech_tpu_torch.models.layers import (
+    Conv1d,
+    DerivedWeights,
+    causal_conv1d,
+    module_tensors,
+)
+from mri2speech_tpu_torch.ops import mrf
 
 LRELU_SLOPE = 0.1
+FUSE_MODES = ("none", "dense", "grouped", "pallas", "pallas2")
+KERNEL_MODES = ("pallas", "pallas2")
+FUSED_MODE = ("pallas", "pallas", "pallas2", "pallas2")
+
+
+def normalize_fuse_modes(mode: Union[str, Sequence[str]], num_stages: int) -> List[str]:
+    """Per-stage MRF mode list from a string (every stage) or a sequence (one per stage)."""
+    if isinstance(mode, str):
+        return [mode] * num_stages
+    modes = list(mode)
+    if len(modes) != num_stages:
+        raise ValueError(f"fuse_mode needs {num_stages} entries, got {len(modes)}")
+    return modes
 
 
 class ResBlock1(nn.Module):
@@ -49,14 +82,31 @@ class ResBlock2(nn.Module):
 
 class Generator(nn.Module):
     """conv_pre (right pad 6) -> per stage [leaky -> ConvTranspose -> mean of MRF
-    ResBlocks] -> leaky(0.01) -> conv_post (right pad 6) -> tanh."""
+    ResBlocks] -> leaky(0.01) -> conv_post (right pad 6) -> tanh.
 
-    def __init__(self, h: dict) -> None:
+    fuse_mode: None (every stage unfused) or as :func:`normalize_fuse_modes` takes it.
+    """
+
+    def __init__(self, h: dict, fuse_mode: Union[None, str, Sequence[str]] = None) -> None:
         super().__init__()
         self.h = dict(h)
         n_mels = int(h.get("num_mels", 64))
         c0 = int(h["upsample_initial_channel"])
         self.num_kernels = len(h["resblock_kernel_sizes"])
+        num_stages = len(h["upsample_rates"])
+        modes = normalize_fuse_modes("none" if fuse_mode is None else fuse_mode, num_stages)
+        unknown = sorted(set(modes) - set(FUSE_MODES))
+        if unknown:
+            raise ValueError(f"unknown fuse modes {unknown}; expected some of {FUSE_MODES}")
+        self.fuse_modes = tuple(modes)
+        self.mrf_dils = tuple(h["resblock_dilation_sizes"][0])
+        if any(m in KERNEL_MODES for m in modes) and (
+            str(h["resblock"]) != "1"
+            or any(tuple(d) != self.mrf_dils for d in h["resblock_dilation_sizes"])
+        ):
+            raise ValueError(
+                "the MRF kernel takes resblock '1' with one dilation set for all branches")
+        self._mrf_weights = [DerivedWeights() for _ in range(num_stages)]
         resblock = ResBlock1 if str(h["resblock"]) == "1" else ResBlock2
         self.conv_pre = Conv1d(n_mels, c0, 7, pad=(0, 6))
         self.ups = nn.ModuleList()
@@ -69,11 +119,39 @@ class Generator(nn.Module):
                 self.resblocks.append(resblock(ch, rk, tuple(rd)))
         self.conv_post = Conv1d(ch, 1, 7, pad=(0, 6))
 
+    def stage_weights(self, i: int) -> mrf.MRFStageWeights:
+        """Stage i's taps for the MRF kernel (rebuilt when its parameters change)."""
+        blocks = list(self.resblocks[i * self.num_kernels:(i + 1) * self.num_kernels])
+        units = range(len(self.mrf_dils))
+
+        def build():
+            convs = [[[getattr(b, f"convs{c + 1}")[u] for b in blocks] for c in range(2)]
+                     for u in units]
+            return mrf.MRFStageWeights(
+                [[[m.weight for m in per_c] for per_c in per_u] for per_u in convs],
+                [[[m.bias for m in per_c] for per_c in per_u] for per_u in convs],
+                self.h["resblock_kernel_sizes"], self.mrf_dils,
+            )
+
+        return self._mrf_weights[i].get([t for b in blocks for t in module_tensors(b)], build)
+
+    def _fused_stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise RuntimeError("fused MRF stages are an inference transform; call .eval() first")
+        w = self.stage_weights(i)
+        kw = dict(channels=w.channels, kernels=w.kernels, dils=w.dils, layout="bct")
+        if self.fuse_modes[i] == "pallas":
+            return mrf.mrf_stage_pallas(x.repeat(1, self.num_kernels, 1), w, **kw)
+        return mrf.mrf_stage_pallas_v2(x, w, **kw)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(x)
         nk = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
+            if self.fuse_modes[i] in KERNEL_MODES:
+                x = self._fused_stage(i, x)
+                continue
             xs = self.resblocks[i * nk](x)
             for j in range(1, nk):
                 xs = xs + self.resblocks[i * nk + j](x)

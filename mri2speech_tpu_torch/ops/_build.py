@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) at first use into
 ``build/mri2speech_tpu_torch/`` at the checkout root. The file name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. There is no fallback: a missing ``nvcc`` or
-a failed build raises.
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. There is
+no fallback: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -48,9 +48,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Build output of ``csrc/<name>.cu``, keyed by it, the shared headers and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str, nvcc: str):

@@ -9,6 +9,7 @@ emits: timm `cnn.backbone.*` for the encoder, `rnn.lstm.*` for the BiLSTM,
 * ConvTranspose (k, in, out) -> (in, out, k)
 * flax Dense (in, out) -> Linear (out, in); LSTM (C, 4H) -> (4H, C)
 * the fused LSTM bias goes to bias_ih, with bias_hh = 0 (nn.LSTM adds them)
+* a fused MRF stage's packed taps (`mrf_{i}`) are unpacked to its branches
 
 Also here: the weight-norm fold, and the JAX parameter shapes of both models
 (the trees `Module.init` would give), so random weights can be made in the
@@ -17,7 +18,7 @@ JAX layout from a numpy seed without JAX.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +30,10 @@ from mri2speech_tpu_torch.models.effnetv2 import (
     StageSpec,
 )
 from mri2speech_tpu_torch.models.vocoder import Generator
+from mri2speech_tpu_torch.ops.mrf import unpack_mrf_stage_params
 
 _STAGE_RE = re.compile(r"s(\d+)_b(\d+)$")
+_PACKED_RE = re.compile(r"u\d+_c\d+_[wb]$")  # a Pallas MRF stage's packed leaves
 
 
 def _flatten(tree: Dict, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -82,13 +85,42 @@ def fold_weight_norm(params):
 # generator
 # ---------------------------------------------------------------------------
 
-def generator_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def _unpack_fused_stages(params: Dict[str, Any], h: dict) -> Dict[str, Any]:
+    """Replace the JAX fused tree's ``mrf_{i}`` stages (`fuse_mrf_params` in a
+    "pallas"/"pallas2" mode) by the ``resblocks_*`` they were packed from."""
+    kernels = list(h["resblock_kernel_sizes"])
+    dils = tuple(h["resblock_dilation_sizes"][0])
+    nb = len(kernels)
+    out = {k: v for k, v in params.items() if not k.startswith("mrf_")}
+    for name, stage in params.items():
+        if not name.startswith("mrf_"):
+            continue
+        if not all(_PACKED_RE.match(k) for k in stage):
+            raise KeyError(f"{name}: only the Pallas MRF layout (u{{u}}_c{{c}}_w/_b) is "
+                           f"carried across, got {sorted(stage)}")
+        i = int(name.split("_")[1])
+        for j, blk in enumerate(unpack_mrf_stage_params(stage, kernels, dils)):
+            out[f"resblocks_{i * nb + j}"] = blk
+    return out
+
+
+def generator_state_dict_from_jax(
+    params: Dict[str, Any], h: Optional[dict] = None
+) -> Dict[str, torch.Tensor]:
     """JAX Generator params (weight-normed {v, g, b} or folded {w, b}) -> state_dict.
 
     Weight norm is folded first: the port's Generator holds plain weights.
+    The JAX fused tree of a "pallas"/"pallas2" stage (``mrf_{i}`` with
+    ``u{u}_c{c}_w`` (k_max, 3C, 3C) and ``u{u}_c{c}_b`` (1, 3C)) is unpacked
+    to its branches' ``resblocks.*``; that needs ``h``.
     """
+    params = fold_weight_norm(params)
+    if any(k.startswith("mrf_") for k in params):
+        if h is None:
+            raise ValueError("a fused generator tree (mrf_* stages) needs the config h")
+        params = _unpack_fused_stages(params, h)
     sd: Dict[str, torch.Tensor] = {}
-    for path, v in _flatten(fold_weight_norm(params)).items():
+    for path, v in _flatten(params).items():
         scope, kind = path[:-1], path[-1]
         name = scope[0]
         if name in ("conv_pre", "conv_post"):
@@ -296,11 +328,15 @@ def acoustic_model_from_jax(
     return model.eval()
 
 
-def generator_from_jax(params: Dict[str, Any], h: dict) -> Generator:
-    """Generator(h) holding the JAX weights (folded, strict load), eval mode, CPU."""
+def generator_from_jax(params: Dict[str, Any], h: dict, fuse_mode=None) -> Generator:
+    """Generator(h, fuse_mode) holding the JAX weights (folded, strict load), eval mode, CPU.
+
+    ``params`` may be the unfused tree or the JAX fused tree of
+    `fuse_mrf_params(..., mode=[..."pallas"/"pallas2"...])`.
+    """
     with torch.device("meta"):
-        gen = Generator(h)
-    gen.load_state_dict(generator_state_dict_from_jax(params), strict=True, assign=True)
+        gen = Generator(h, fuse_mode=fuse_mode)
+    gen.load_state_dict(generator_state_dict_from_jax(params, h), strict=True, assign=True)
     return gen.eval()
 
 

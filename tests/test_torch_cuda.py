@@ -5,8 +5,22 @@ package, so on a machine with a card and no JAX it runs on its own:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-Tolerance 1e-4: fp32 dot products summed in another order, carried through
-T steps of contractive gates (differences of ~2e-7 are seen at H=640).
+Tolerances:
+* K1 (BiLSTM) 1e-4: fp32 dot products summed in another order, carried
+  through T steps of contractive gates (differences of ~2e-7 are seen at
+  H=640).
+* K3 (MRF stage) and K4 (MBConv block) with fp32 operands: 1e-4 absolute on
+  outputs of size ~1-5 (fp32 FMAs against cuDNN/cuBLAS fp32 with TF32 off,
+  summed in another order).
+* K3 and K4 with bf16 operands: the smaller of 2e-4 x max|ref| and half the
+  control, the kernel with fp32 operands held against the bf16 plain
+  version, as in chip_smoke.py. Kernel and plain version round the same
+  activations to bf16, but a sum taken in another order can flip a rounding
+  (one bf16 ulp, 2^-8 relative), which then travels through the remaining
+  products. Seen on the H100: K3 2.9e-6 to 4.1e-5 x max|ref| against
+  controls 6.0e-5 to 2.0e-4; K4 6.3e-8 to 3.0e-5 against 4.2e-4 to 5.7e-4.
+* the tiny fused pipeline, card vs CPU: mel_db 1e-2 dB, mel_log 2.5e-3,
+  audio 1e-4, as chip_smoke.py's fp32 card-vs-CPU check.
 """
 import numpy as np
 import pytest
@@ -15,7 +29,8 @@ import torch
 from mri2speech_tpu_torch.config import default_vocoder_config
 from mri2speech_tpu_torch.infer.pipeline import VideoToSpeechPipeline
 from mri2speech_tpu_torch.models.effnetv2 import StageSpec
-from mri2speech_tpu_torch.ops import bilstm
+from mri2speech_tpu_torch.models.vocoder import FUSED_MODE
+from mri2speech_tpu_torch.ops import bilstm, mbconv, mrf
 from mri2speech_tpu_torch.ops.scaler import MelScaler
 from mri2speech_tpu_torch.weights import (
     acoustic_model_from_jax,
@@ -27,6 +42,9 @@ from mri2speech_tpu_torch.weights import (
 torch.set_num_threads(1)
 
 ATOL = 1e-4
+BF16_REL = 2e-4
+CONTROL_SHARE = 0.5
+MRF_KERNELS, MRF_DILS = (3, 7, 11), (1, 3, 5)
 TINY_SPEC = (
     StageSpec("cn", 3, 1, 1, 8, 1),
     StageSpec("er", 3, 2, 2, 8, 1),
@@ -97,4 +115,138 @@ def test_tiny_pipeline_card_matches_cpu(cuda_device):
     assert bilstm.launches == before + 1
     cpu = pipe("cpu")(frames)
     for name, c, r, tol in zip(("audio", "mel_db", "mel_log"), card, cpu, (1e-5, 1e-3, 1e-4)):
+        np.testing.assert_allclose(c, r, atol=tol, rtol=0, err_msg=name)
+
+
+def _mrf_weights(C, seed):
+    """Taps N(0, 0.01), the generator's own init scale. At larger scales each
+    conv's gain passes 1, and a bf16 rounding flipped by a reordered sum grows
+    through the 18 convs until it is as large as the fp32-vs-bf16 difference."""
+    rng = np.random.default_rng(seed)
+    resblocks = [
+        {f"{n}_{u}": {"w": (rng.standard_normal((k, C, C)) * 0.01).astype(np.float32),
+                      "b": (rng.standard_normal(C) * 0.05).astype(np.float32)}
+         for u in range(3) for n in ("convs1", "convs2")}
+        for k in MRF_KERNELS
+    ]
+    return mrf.MRFStageWeights.from_resblocks(resblocks, MRF_KERNELS, MRF_DILS)
+
+
+def _tol(run, dtype, ref):
+    """The limit on max|kernel - plain| for run(dtype) against ref, the plain version's output."""
+    if dtype == torch.float32:
+        return ATOL
+    control = (run(torch.float32) - ref).abs().max().item()
+    return min(BF16_REL * ref.abs().max().item(), CONTROL_SHARE * control)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("entry,B,T,C", [("v1", 2, 300, 40), ("v2", 2, 300, 40),
+                                         ("v1", 1, 1000, 96), ("v2", 1, 1000, 96)])
+def test_mrf_stage_matches_plain_version_on_card(cuda_device, entry, B, T, C, dtype):
+    """Ragged multi-tile T, a partial output-channel block, both entry points and layouts."""
+    w = _mrf_weights(C, seed=C)
+    tiled = entry == "v1"
+    x = torch.from_numpy((np.random.default_rng(T).standard_normal(
+        (B, T, 3 * C if tiled else C)) * 0.5).astype(np.float32)).to(cuda_device)
+    fn = mrf.mrf_stage_pallas if tiled else mrf.mrf_stage_pallas_v2
+    kw = dict(channels=C, kernels=MRF_KERNELS, dils=MRF_DILS, mxu_dtype=dtype)
+    name = fn.__name__
+    before = mrf.launches[name]
+    got = fn(x, w, **kw)
+    got_bct = fn(x.transpose(1, 2).contiguous(), w, layout="bct", **kw)
+    torch.cuda.synchronize()
+    assert mrf.launches[name] == before + 2
+    xt = x.transpose(1, 2)
+    xs = [xt[:, j * C:(j + 1) * C] for j in range(3)] if tiled else xt
+    ref = mrf.mrf_stage_reference(xs, w, dtype).transpose(1, 2)
+    tol = _tol(lambda dt: fn(x, w, **dict(kw, mxu_dtype=dt)), dtype, ref)
+    torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+    torch.testing.assert_close(got_bct.transpose(1, 2), ref, atol=tol, rtol=0)
+
+
+def _mbconv_weights(C, E, R, seed):
+    rng = np.random.default_rng(seed)
+
+    def a(*shape, scale=1.0, shift=0.0):
+        return (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+
+    return mbconv.MBConvWeights.from_jax({
+        "w1": a(C, E, scale=C ** -0.5), "b1": a(E, scale=0.1), "wd": a(3, 3, E, scale=0.3),
+        "bd": a(E, scale=0.1), "wr": a(E, R, scale=E ** -0.5), "br": a(R, scale=0.1),
+        "we": a(R, E, scale=R ** -0.5), "be": a(E, scale=0.1), "w3": a(E, C, scale=E ** -0.5),
+        "b3": a(C, scale=0.1),
+    })
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("N,H,W,C,E,R", [(3, 8, 8, 16, 64, 4), (2, 16, 16, 24, 144, 6),
+                                         (5, 4, 8, 40, 100, 10)])
+def test_mbconv_block_matches_plain_version_on_card(cuda_device, N, H, W, C, E, R, dtype):
+    w = _mbconv_weights(C, E, R, seed=E)
+    x = torch.from_numpy((np.random.default_rng(N).standard_normal((N, H, W, C)) * 0.5)
+                         .astype(np.float32)).to(cuda_device)
+    before = mbconv.launches
+    got = mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype)
+    got_nchw = mbconv.mbconv_block_pallas(x.permute(0, 3, 1, 2).contiguous(), w,
+                                          mxu_dtype=dtype, layout="nchw")
+    torch.cuda.synchronize()
+    assert mbconv.launches == before + 2
+    ref = mbconv.mbconv_block_reference(x.permute(0, 3, 1, 2), w, dtype).permute(0, 2, 3, 1)
+    tol = _tol(lambda dt: mbconv.mbconv_block_pallas(x, w, mxu_dtype=dt), dtype, ref)
+    torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+    torch.testing.assert_close(got_nchw.permute(0, 2, 3, 1), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mrf_and_mbconv_wrappers_reject_bad_inputs(cuda_device):
+    w = _mrf_weights(32, seed=1)
+    x = torch.zeros(1, 50, 32, device=cuda_device)
+    with pytest.raises(TypeError):
+        mrf.mrf_stage_pallas_v2(x.double(), w, channels=32)
+    with pytest.raises(ValueError):
+        mrf.mrf_stage_pallas_v2(x[:, ::2], w, channels=32)  # not contiguous
+    with pytest.raises(ValueError):
+        mrf.mrf_stage_pallas(x, w, channels=32)  # v1 takes 3C channels
+    mw = _mbconv_weights(16, 64, 4, seed=2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mbconv.mbconv_block_pallas(torch.zeros(1, 5, 5, 16, device=cuda_device), mw)
+    with pytest.raises(TypeError):
+        mbconv.mbconv_block_pallas(torch.zeros(1, 8, 8, 16, device=cuda_device).double(), mw)
+
+
+FUSED_SPEC = (
+    StageSpec("cn", 3, 1, 1, 8, 1),
+    StageSpec("er", 3, 2, 2, 8, 1),
+    StageSpec("ir", 3, 2, 2, 16, 2, 0.25),  # b1 fuses
+)
+
+
+@pytest.mark.cuda
+def test_tiny_fused_pipeline_card_matches_cpu(cuda_device):
+    """The fused configuration: per request K1 once, K3 once per stage, K4 once per fused block."""
+    params, stats = random_acoustic_params(seed=44, spec=FUSED_SPEC, stem_channels=8,
+                                           rnn_hidden=16)
+    h = dict(default_vocoder_config(upsample_initial_channel=64))
+    gen_params = random_generator_params(h, seed=45)
+    scaler = MelScaler(mean=np.linspace(-40, -10, 64).astype(np.float32),
+                       std=np.full(64, 5.0, np.float32))
+
+    def pipe(device):
+        model = acoustic_model_from_jax(params, stats, rnn_hidden=16, cnn_spec=FUSED_SPEC,
+                                        cnn_stem=8, fuse_ir=True)
+        gen = generator_from_jax(gen_params, h, fuse_mode=FUSED_MODE)
+        return VideoToSpeechPipeline(model, gen, scaler, frame_bucket=8,
+                                     input_norm="zscore_minmax", device=device)
+
+    frames = (np.random.default_rng(46).random((13, 64, 64)) * 255).astype(np.uint8)
+    before = (bilstm.launches, dict(mrf.launches), mbconv.launches)
+    card = pipe(cuda_device)(frames)
+    assert (bilstm.launches, mbconv.launches) == (before[0] + 1, before[2] + 1)
+    # stages 0-1 through the v1 entry point, 2-3 through v2
+    assert mrf.launches == {k: n + 2 for k, n in before[1].items()}
+    cpu = pipe("cpu")(frames)
+    for name, c, r, tol in zip(("audio", "mel_db", "mel_log"), card, cpu, (1e-4, 1e-2, 2.5e-3)):
         np.testing.assert_allclose(c, r, atol=tol, rtol=0, err_msg=name)
