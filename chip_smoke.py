@@ -11,9 +11,10 @@ builds every kernel from `mri2speech_tpu_torch/csrc/`, then:
    shapes the main paths give it, and times kernel, plain version and a
    library call that computes the same function (a yardstick only):
    K1 (BiLSTM recurrence), K3 (MRF stage, both entry points, at the four
-   stages of a 250-frame request plus ragged batch-2 cases) and K4 (MBConv
-   block, at its three B2 shapes with 256 frames), K3 and K4 in both operand
-   types (bf16, the path's, and fp32); the bf16 limit is set below a
+   stages of a 250-frame request and of a 48-frame online generator window,
+   plus ragged batch-2 cases) and K4 (MBConv block, at its three B2 shapes
+   with 256 frames and with a 16-frame online chunk), K3 and K4 in both
+   operand types (bf16, the path's, and fp32); the bf16 limit is set below a
    control, the fp32-operand kernel against the bf16 plain version;
 3. serves a few requests through the full-width video -> speech pipeline
    (EfficientNetV2-B2, BiLSTM 640, HiFi-GAN 512 / rates 10,7,3,2; random
@@ -30,7 +31,23 @@ builds every kernel from `mri2speech_tpu_torch/csrc/`, then:
 6. profiles one warm 250-frame request of each path (device time by
    kernel, the device's idle share), and times the host's weight-cache
    checks of a fused request;
-7. prints a JSON line of kernels and, last, {"ok": true, "device": {...}}.
+7. holds the recurrence kernel's single-direction entries against the plain
+   version at the online path's shapes (K2a: T=16 forward with seed, hold
+   and final state, T=32 reverse with hold, and the freeze mode at T=256)
+   and its unchunked bidirectional entry (K2b, T=256), with times, bounds
+   and cuDNN's nn.LSTM beside them;
+8. streams a 250-frame video 16 frames a push through online streaming
+   (`infer/online.py`, chunk 16, lookahead 16) on both configurations, after
+   a warm-up stream, with the launch counts set to 0 just before and read
+   just after: two single-direction launches per emitted mel chunk and no
+   K1, and on the fused configuration K3 four times per generator window and
+   K4 17 times per CNN chunk; then holds the online path against the offline
+   pipeline (full lookahead; the last frame also against the generator run on
+   the mel padded with zero frames), both configurations against themselves
+   on the CPU (each limit with a control that must fail it), and incremental
+   pushes against one bulk push (within a limit under cuDNN's default
+   algorithms, bit for bit under its deterministic ones);
+9. prints a JSON line of kernels and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -79,6 +96,27 @@ CONTROL_SHARE = 0.5
 # fused and the fp32 path on the card (6.1e-4 dB), and the script checks that
 # the gap fails it.
 FUSED_TOL = {"mel_db": 1e-4, "mel_log": 2.5e-5, "audio": 5e-6}
+# online streaming on the fp32 path: card vs CPU, and card vs the offline pipeline
+# before the stream's last frame. Seen on the H100: 3.8e-6 dB (one ulp at |mel_db|
+# 32-64) and audio 1.5e-8 (card vs CPU) / 3.7e-9 (vs offline). The limits are
+# 26x and 67x the larger reading. Controls that must fail them: for mel_db a
+# stream whose forward LSTM restarts from zeros at every chunk, for audio one
+# whose generator windows lack their left context (with random weights the
+# generator barely hears a change of the mel: the first moves audio ~1e-8).
+ONLINE_TOL = {"mel_db": 1e-4, "audio": 1e-6}
+# online vs offline inside the stream's last frame, its last 6 samples aside: a
+# boundary the two compute differently on purpose (infer/online.py); 6.0e-5 seen
+# on the H100, 21 samples from the end. Every sample of it is also held to
+# ONLINE_TOL against the offline generator run on the mel padded with zero frames.
+LAST_FRAME_TOL = 3e-4
+# 16-frame pushes vs one bulk push under cuDNN's default algorithms, which may sum
+# with atomics: audio 3.7e-9 and mel_db 0 seen on the H100. Under its
+# deterministic algorithms: bit for bit.
+INCREMENTAL_TOL = {"mel_db": 1e-5, "audio": 1e-8}
+ONLINE_CHUNK = 16      # frames per push and per chunk, the CLI default
+ONLINE_LOOKAHEAD = 16  # backward-LSTM lookahead frames, the CLI default
+ONLINE_FRAMES = 250
+ONLINE_WINDOW = 3 * ONLINE_CHUNK  # a steady generator window at the defaults (K = 3)
 # where the fused path's K4 blocks sit in B2, and how many of each shape a request runs
 K4_BLOCKS = (("s3", 3, 16, 3), ("s4", 4, 16, 5), ("s5", 5, 8, 9))  # (name, stage, H=W, count)
 
@@ -115,15 +153,18 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def k1_bound(T: int, B: int):
-    """Least time for the BiLSTM recurrence on this card: (ms, "bytes" | "operations").
+def k1_bound(T: int, B: int, directions: int = 2, held: bool = False):
+    """Least time for the LSTM recurrence on this card: (ms, "bytes" | "operations").
 
-    Operations: the recurrent products, 2 directions x T x B x (4H x H) MACs.
-    Bytes: xg read once, w_hh read once, h written once, the cell state
-    written once. The T steps are dependent; the bound ignores that.
+    Operations: the recurrent products, directions x T x B x (4H x H) MACs.
+    Bytes: per direction xg read once, w_hh read once, h written once, the
+    cell state written once; in hold mode also the (T, B) mask and the seed
+    (h0, c0) read once. The T steps are dependent; the bound ignores that.
     """
-    ops = 2 * T * B * 4 * H * H * 2
-    nbytes = 4 * (2 * T * B * 4 * H + 2 * 4 * H * H + 2 * T * B * H + 2 * B * H)
+    ops = directions * T * B * 4 * H * H * 2
+    nbytes = 4 * directions * (T * B * 4 * H + 4 * H * H + T * B * H + B * H)
+    if held:
+        nbytes += 4 * (T * B + 2 * B * H)
     t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -214,6 +255,118 @@ def phase_k1(torch, bilstm):
     return cases
 
 
+def _lstm_case(torch, g, T, B, lengths):
+    """Seeded inputs of one recurrence case at H=640: xg (T, B, 4H) and a ragged (T, B) mask."""
+    x = torch.randn(T, B, 4 * H, generator=g).cuda()
+    mask = torch.zeros(T, B)
+    for i, n in enumerate(lengths):
+        mask[:n, i] = 1.0
+    return x, mask.cuda()
+
+
+def phase_k2a(torch, bilstm, w):
+    """The single-direction entries against the plain version at H=640, B=1.
+
+    The online path's two recurrences per emitted chunk, in hold mode (the
+    CUDA route of `lstm_direction`): T=16 forward from a seed with the final
+    state out, T=32 reverse from zeros; each with padded steps to hold. And
+    K2a proper (`lstm_recurrence_pallas`, freeze mode) at T=256. Times:
+    kernel, plain version, cuDNN's unidirectional nn.LSTM(208, 640) with its
+    input projection, and the bound.
+    """
+    g = torch.Generator(device="cpu").manual_seed(2)
+    h0 = (torch.randn(1, H, generator=g) * 0.5).cuda()
+    c0 = (torch.randn(1, H, generator=g) * 0.5).cuda()
+    cases = []
+    for mode, T, reverse, lengths in (("hold", 16, False, [11]), ("hold", 32, True, [27]),
+                                      ("freeze", 256, False, [250])):
+        x, mask = _lstm_case(torch, g, T, 1, lengths)
+        seed = (h0, c0) if mode == "hold" and not reverse else None
+        if mode == "hold":
+            def kernel():
+                return bilstm.lstm_recurrence(x, w, mask, reverse=reverse, init_state=seed)
+
+            def plain():
+                return bilstm.lstm_recurrence_reference(
+                    x, w, mask, reverse=reverse,
+                    h0=None if seed is None else h0, c0=None if seed is None else c0)
+        else:
+            def kernel():
+                return bilstm.lstm_recurrence_pallas(x, w, mask, reverse=reverse), (None, None)
+
+            def plain():
+                return bilstm.lstm_recurrence_reference(
+                    bilstm.freeze_padded_steps(x, mask), w, reverse=reverse)
+        (ko, (kh, kc)), (ro, (rh, rc)) = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (ko - ro).abs().max().item()
+        if mode == "hold":
+            err = max(err, (kh - rh).abs().max().item(), (kc - rc).abs().max().item())
+            pad = (mask == 0)[..., None].expand(T, 1, H)
+            if reverse:  # trailing padding first, from zeros: held at exact zero
+                check(bool((ko[pad] == 0).all()), f"K2a hold T={T}: padded steps not held")
+            else:  # trailing padding last: held at the final h
+                check(bool((ko[pad] == kh.expand(T, 1, H)[pad]).all()),
+                      f"K2a hold T={T}: padded steps not held")
+        check(err <= K1_TOL, f"K2a {mode} T={T}: error {err} > {K1_TOL}")
+        check(bool(torch.isfinite(ko).all()), f"K2a {mode} T={T}: output not finite")
+        kernel_ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=5)
+        lstm = torch.nn.LSTM(C_FEAT, H).cuda().eval()
+        x_in = torch.randn(T, 1, C_FEAT, generator=g).cuda()
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: lstm(x_in))
+        bound_ms, bound_by = k1_bound(T, 1, directions=1, held=mode == "hold")
+        cases.append(dict(mode=mode, T=T, B=1, reverse=reverse, seeded=seed is not None,
+                          lengths=lengths, err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        print(f"[k2a] {mode} T={T} B=1 {'reverse' if reverse else 'forward'}"
+              f"{' seeded' if seed is not None else ''} lengths={lengths}: max|err| {err:.3e} "
+              f"(out{', h_T, c_T' if mode == 'hold' else ''}; tol {K1_TOL:g}); kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN nn.LSTM(208, 640) "
+              f"{library_ms:.4f} ms (includes the input projection); bound {bound_ms:.6f} ms "
+              f"({bound_by})", flush=True)
+    return cases
+
+
+def phase_k2b(torch, bilstm, w):
+    """The unchunked bidirectional entry (K2b) against the plain version, T=256."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cases = []
+    for lengths in ([250], [256, 190]):
+        T, B = 256, len(lengths)
+        xf, mask = _lstm_case(torch, g, T, B, lengths)
+        xb = torch.randn(T, B, 4 * H, generator=g).cuda()
+
+        def kernel():
+            return bilstm.bilstm_recurrence_pallas(xf, xb, w[0], w[1], mask)
+
+        def plain():
+            return bilstm.bilstm_recurrence_reference(
+                bilstm.freeze_padded_steps(xf, mask), bilstm.freeze_padded_steps(xb, mask),
+                w[0], w[1])
+        (kf, kb), (rf, rb) = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max((kf - rf).abs().max().item(), (kb - rb).abs().max().item())
+        check(err <= K1_TOL, f"K2b B={B}: error {err} > {K1_TOL}")
+        check(bool(torch.isfinite(kf).all() and torch.isfinite(kb).all()), "K2b not finite")
+        kernel_ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=5)
+        lstm = torch.nn.LSTM(C_FEAT, H, bidirectional=True).cuda().eval()
+        x_in = torch.randn(T, B, C_FEAT, generator=g).cuda()
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: lstm(x_in))
+        bound_ms, bound_by = k1_bound(T, B)
+        cases.append(dict(T=T, B=B, lengths=lengths, err=err, kernel_ms=kernel_ms,
+                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by))
+        print(f"[k2b] T={T} B={B} lengths={lengths}: max|err| {err:.3e} (all positions; tol "
+              f"{K1_TOL:g}); kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
+              f"nn.LSTM(208, 640, bidirectional) {library_ms:.4f} ms; bound {bound_ms:.6f} ms "
+              f"({bound_by})", flush=True)
+    return cases
+
+
 def _rel_err(got, ref) -> float:
     return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
 
@@ -249,51 +402,63 @@ def _hold(kernel: str, tag: str, run, plain) -> dict:
 
 
 def phase_k3(torch, mrf, gen):
-    """K3 at the four MRF stages of a 250-frame request, plus ragged batch-2 cases.
+    """K3 at the four MRF stages of a 250-frame request and of a steady online
+    generator window (48 frames), plus ragged batch-2 cases.
 
     Weights: the full-width generator's own stages (seeded). Each entry point
     runs in the generator's (B, C, T) layout as the fused path calls it, is held
-    against the plain version in both operand types, and is timed in bf16:
-    kernel, plain version, and the port's unfused fp32 ResBlock1 stack
-    through cuDNN (the library yardstick, which the fused path never calls).
+    against the plain version in both operand types, and is timed in bf16;
+    at the request's shapes also the plain version and the port's unfused
+    fp32 ResBlock1 stack through cuDNN (the library yardstick, which the fused
+    path never calls).
     """
     from mri2speech_tpu_torch.models.vocoder import FUSED_MODE
 
     g = torch.Generator(device="cpu").manual_seed(3)
     h = gen.h
     nk = len(h["resblock_kernel_sizes"])
-    cases, T = [], FRAMES
-    for i, (rate, mode) in enumerate(zip(h["upsample_rates"], FUSED_MODE)):
-        T *= rate
-        w = gen.stage_weights(i)
-        C = w.channels
-        tiled = mode == "pallas"
-        fn = mrf.mrf_stage_pallas if tiled else mrf.mrf_stage_pallas_v2
-        name = fn.__name__
-        x = (torch.randn(1, C, T, generator=g) * 0.5).cuda()
-        xin = x.repeat(1, nk, 1) if tiled else x
+    cases = []
+    # the online cases draw from a generator of their own: the other cases keep their inputs
+    for frames, online, gx in ((FRAMES, False, g),
+                               (ONLINE_WINDOW, True, torch.Generator().manual_seed(7))):
+        T = frames
+        for i, (rate, mode) in enumerate(zip(h["upsample_rates"], FUSED_MODE)):
+            T *= rate
+            w = gen.stage_weights(i)
+            C = w.channels
+            tiled = mode == "pallas"
+            fn = mrf.mrf_stage_pallas if tiled else mrf.mrf_stage_pallas_v2
+            name = fn.__name__
+            x = (torch.randn(1, C, T, generator=gx) * 0.5).cuda()
+            xin = x.repeat(1, nk, 1) if tiled else x
 
-        def kernel(dtype=torch.bfloat16):
-            return fn(xin, w, channels=C, kernels=w.kernels, dils=w.dils, mxu_dtype=dtype,
-                      layout="bct")
+            def kernel(dtype=torch.bfloat16):
+                return fn(xin, w, channels=C, kernels=w.kernels, dils=w.dils, mxu_dtype=dtype,
+                          layout="bct")
 
-        errs = _hold("K3", f"{name} stage {i} B=1 T={T} C={C}", kernel,
-                     lambda dtype: mrf.mrf_stage_reference(x, w, dtype))
-        blocks = list(gen.resblocks[i * nk:(i + 1) * nk])
-        with torch.inference_mode():
-            kernel_ms = cuda_ms(kernel)
-            fp32_ms = cuda_ms(lambda: kernel(torch.float32), reps=5)
-            plain_ms = cuda_ms(lambda: mrf.mrf_stage_reference(x, w, torch.bfloat16), reps=5)
-            library_ms = cuda_ms(lambda: sum(b(x) for b in blocks) / nk)
-        bound_ms, bound_by = k3_bound(1, T, C, nk * C if tiled else C)
-        cases.append(dict(name=name, stage=i, B=1, T=T, C=C, err_bf16=errs["bf16"][0],
-                          err_fp32=errs["fp32"][0], control=errs["control"],
-                          kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
-        print(f"[k3] {name} stage {i} B=1 T={T} C={C}: kernel bf16 {kernel_ms:.4f} ms, fp32 "
-              f"operands {fp32_ms:.4f} ms, plain (bf16) {plain_ms:.4f} ms, unfused ResBlock1 "
-              f"stack fp32 cuDNN {library_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})",
-              flush=True)
+            tag = f"{name} stage {i} B=1 T={T} C={C}" + (" (online window)" if online else "")
+            errs = _hold("K3", tag, kernel, lambda dtype: mrf.mrf_stage_reference(x, w, dtype))
+            case = dict(name=name, stage=i, B=1, T=T, C=C, err_bf16=errs["bf16"][0],
+                        err_fp32=errs["fp32"][0], control=errs["control"])
+            with torch.inference_mode():
+                kernel_ms = cuda_ms(kernel)
+            if online:
+                case["online_ms"] = kernel_ms
+                print(f"[k3] {tag}: kernel bf16 {kernel_ms:.4f} ms", flush=True)
+                cases.append(case)
+                continue
+            blocks = list(gen.resblocks[i * nk:(i + 1) * nk])
+            with torch.inference_mode():
+                fp32_ms = cuda_ms(lambda: kernel(torch.float32), reps=5)
+                plain_ms = cuda_ms(lambda: mrf.mrf_stage_reference(x, w, torch.bfloat16), reps=5)
+                library_ms = cuda_ms(lambda: sum(b(x) for b in blocks) / nk)
+            bound_ms, bound_by = k3_bound(1, T, C, nk * C if tiled else C)
+            case.update(kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            cases.append(case)
+            print(f"[k3] {tag}: kernel bf16 {kernel_ms:.4f} ms, fp32 operands {fp32_ms:.4f} ms, "
+                  f"plain (bf16) {plain_ms:.4f} ms, unfused ResBlock1 stack fp32 cuDNN "
+                  f"{library_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})", flush=True)
     # ragged, several time tiles, batch 2, in the JAX (B, T, C) layout
     for i, fn, B, T in ((1, mrf.mrf_stage_pallas, 2, 1000), (3, mrf.mrf_stage_pallas_v2, 2, 3001)):
         w = gen.stage_weights(i)
@@ -312,39 +477,51 @@ def phase_k3(torch, mrf, gen):
 
 
 def phase_k4(torch, mbconv, model):
-    """K4 at its three B2 block shapes with 256 frames, in both operand types.
+    """K4 at its three B2 block shapes with 256 frames (a request's bucket) and
+    with 16 (an online CNN chunk), in both operand types.
 
     Weights: the full-width encoder's own blocks s3_b1, s4_b1, s5_b1
-    (seeded), BatchNorm folded. Timed in bf16: kernel, plain version, and the
-    unfused fp32 InvertedResidual through cuDNN (the library yardstick).
+    (seeded), BatchNorm folded. Timed in bf16; at 256 frames also the plain
+    version and the unfused fp32 InvertedResidual through cuDNN (the library
+    yardstick).
     """
     g = torch.Generator(device="cpu").manual_seed(4)
     cases = []
-    for name, si, hw, count in K4_BLOCKS:
-        block = model.cnn.backbone.blocks[si][1]
-        w = mbconv.MBConvWeights.from_block(block)
-        C, E, R = w.dims
-        x = (torch.randn(FRAMES, C, hw, hw, generator=g) * 0.5).cuda()
-        errs = _hold(
-            "K4", f"{name} N={FRAMES} {hw}x{hw} C={C} E={E} R={R}",
-            lambda dtype: mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype, layout="nchw"),
-            lambda dtype: mbconv.mbconv_block_reference(x, w, dtype))
-        with torch.inference_mode():
-            kernel_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(x, w, layout="nchw"))
-            fp32_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(
-                x, w, mxu_dtype=torch.float32, layout="nchw"), reps=5)
-            plain_ms = cuda_ms(lambda: mbconv.mbconv_block_reference(x, w, torch.bfloat16))
-            library_ms = cuda_ms(lambda: block(x))
-        bound_ms, bound_by = k4_bound(FRAMES, hw * hw, C, E, R)
-        cases.append(dict(name=name, count=count, N=FRAMES, HW=hw * hw, C=C, E=E, R=R,
-                          err_bf16=errs["bf16"][0], err_fp32=errs["fp32"][0],
-                          control=errs["control"], kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms,
-                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by))
-        print(f"[k4] {name} (x{count} per request) N={FRAMES} {hw}x{hw} C={C} E={E} R={R}: "
-              f"kernel bf16 {kernel_ms:.4f} ms, fp32 operands {fp32_ms:.4f} ms, plain (bf16) "
-              f"{plain_ms:.4f} ms, unfused InvertedResidual fp32 cuDNN {library_ms:.4f} ms; "
-              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    for N in (FRAMES, ONLINE_CHUNK):
+        for name, si, hw, count in K4_BLOCKS:
+            block = model.cnn.backbone.blocks[si][1]
+            w = mbconv.MBConvWeights.from_block(block)
+            C, E, R = w.dims
+            x = (torch.randn(N, C, hw, hw, generator=g) * 0.5).cuda()
+            tag = f"{name} N={N} {hw}x{hw} C={C} E={E} R={R}"
+            errs = _hold(
+                "K4", tag,
+                lambda dtype: mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype, layout="nchw"),
+                lambda dtype: mbconv.mbconv_block_reference(x, w, dtype))
+            case = dict(name=name, count=count, N=N, HW=hw * hw, C=C, E=E, R=R,
+                        err_bf16=errs["bf16"][0], err_fp32=errs["fp32"][0],
+                        control=errs["control"])
+            with torch.inference_mode():
+                kernel_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(x, w, layout="nchw"))
+            if N == ONLINE_CHUNK:
+                case["online_ms"] = kernel_ms
+                print(f"[k4] {tag} (online CNN chunk, x{count}): kernel bf16 {kernel_ms:.4f} ms",
+                      flush=True)
+                cases.append(case)
+                continue
+            with torch.inference_mode():
+                fp32_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(
+                    x, w, mxu_dtype=torch.float32, layout="nchw"), reps=5)
+                plain_ms = cuda_ms(lambda: mbconv.mbconv_block_reference(x, w, torch.bfloat16))
+                library_ms = cuda_ms(lambda: block(x))
+            bound_ms, bound_by = k4_bound(N, hw * hw, C, E, R)
+            case.update(kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            cases.append(case)
+            print(f"[k4] {tag} (x{count} per request): kernel bf16 {kernel_ms:.4f} ms, fp32 "
+                  f"operands {fp32_ms:.4f} ms, plain (bf16) {plain_ms:.4f} ms, unfused "
+                  f"InvertedResidual fp32 cuDNN {library_ms:.4f} ms; bound {bound_ms:.6f} ms "
+                  f"({bound_by})", flush=True)
     return cases
 
 
@@ -408,25 +585,27 @@ def stage_ms(torch, pipe, frames, reps: int = 3):
 
 
 def read_launches() -> dict:
-    """Each kernel entry point's launch count, by the name in the `kernels` line."""
+    """Each kernel entry point's launch count, by entry point name."""
     from mri2speech_tpu_torch.ops import bilstm, mbconv, mrf
 
-    return {"bilstm_recurrence": bilstm.launches, **mrf.launches,
-            "mbconv_block_pallas": mbconv.launches}
+    return {**bilstm.launches, **mrf.launches, "mbconv_block_pallas": mbconv.launches}
 
 
 def reset_launches() -> None:
     from mri2speech_tpu_torch.ops import bilstm, mbconv, mrf
 
-    bilstm.launches = mbconv.launches = 0
-    for name in mrf.launches:
-        mrf.launches[name] = 0
+    mbconv.launches = 0
+    for counts in (bilstm.launches, mrf.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_counts(per_request: dict, n_requests: int, tag: str) -> None:
+    """Every entry point's count against per_request (entry points not named: 0)."""
     for name, n in read_launches().items():
-        check(n == per_request[name] * n_requests,
-              f"{tag}: {name} launches {n} != {per_request[name]} x {n_requests} requests")
+        want = per_request.get(name, 0)
+        check(n == want * n_requests,
+              f"{tag}: {name} launches {n} != {want} x {n_requests} requests")
 
 
 def phase_pipeline(torch, per_request, pipe, rng, tag: str):
@@ -491,7 +670,7 @@ def phase_pipeline(torch, per_request, pipe, rng, tag: str):
 
 
 KERNEL_GROUPS = (  # substrings of kernel names -> the port's kernel they belong to
-    ("bilstm_step_kernel", "K1 bilstm_recurrence"),
+    ("lstm_step_kernel", "K1/K2 lstm recurrence"),
     ("causal_conv_kernel", "K3 mrf_stage: convs"),
     ("branch_mean_kernel", "K3 mrf_stage: branch mean"),
     ("mbconv_expand_kernel", "K4 mbconv_block: pass 1 (pw, dw, pool)"),
@@ -499,20 +678,19 @@ KERNEL_GROUPS = (  # substrings of kernel names -> the port's kernel they belong
 )
 
 
-def phase_profile(torch, pipe, frames, tag: str):
-    """Device time by kernel over one warm request (torch.profiler), and the idle share.
+def phase_profile(torch, run, tag: str, what: str):
+    """Device time by kernel over one call of run(), warm (torch.profiler), and the idle share.
 
     Busy time is the sum of the kernels' device times (one stream, so they do
-    not overlap); the idle share is 1 - busy / the request's wall time.
+    not overlap); the idle share is 1 - busy / the call's wall time.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe(frames)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(frames)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {}
@@ -528,12 +706,279 @@ def phase_profile(torch, pipe, frames, tag: str):
         print(f"[{tag}] torch.profiler recorded no device time: by-kernel time not measured",
               flush=True)
         return None
-    print(f"[{tag}] one warm T={frames.shape[0]} request under torch.profiler: wall "
+    print(f"[{tag}] {what} under torch.profiler: wall "
           f"{wall_ms:.2f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; "
           "by kernel: " + "; ".join(f"{g} {t:.3f} ms ({n} launches)" for g, (n, t) in
                                      sorted(groups.items(), key=lambda kv: -kv[1][1])),
           flush=True)
     return dict(wall_ms=wall_ms, busy_ms=busy, groups=groups)
+
+
+
+def _stream(torch, online, frames, step: int):
+    """Push `frames` `step` at a time, then flush: (audio, mel_db, per-push walls in s).
+
+    Each push's wall ends with a device synchronisation: a push that emits
+    nothing returns before its work is done.
+    """
+    pieces, walls = [], []
+    for i in range(0, len(frames), step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pieces.append(online.push(frames[i:i + step]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    pieces.append(online.flush())
+    audio = np.concatenate([a for a, _ in pieces])
+    mel = np.concatenate([m for _, m in pieces if m.size], axis=0)
+    return audio, mel, walls
+
+
+def _count_calls(online, names) -> dict:
+    """Count calls of the online object's programs `names` (instance wrappers; del to undo)."""
+    counts = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*args, _fn=getattr(online, name), _name=name, **kwargs):
+            counts[_name] += 1
+            return _fn(*args, **kwargs)
+        setattr(online, name, counted)
+    return counts
+
+
+def online_stage_ms(torch, online, frames, reps: int = 10) -> dict:
+    """Stream time of each program of one steady chunk (CUDA events, median of `reps`).
+
+    cnn: one W-frame chunk; mel: the forward and backward recurrences over an
+    (r+1)-chunk window plus the head and the mel bridge; gen: one steady
+    K-chunk generator window.
+    """
+    W = online.W
+    x = online._to_device(frames[:W][None, :, None])
+    feats = online._cnn(x)
+    window = (feats,) * (online.r + 1)
+    mask = torch.ones(1, (online.r + 1) * W, device=online.device)
+    h = torch.zeros(1, online.acoustic_model.rnn.hidden_size, device=online.device)
+    mel_log = online._mel_step(window, mask, h, h)[1]
+    mels = (mel_log,) * online.K
+    programs = {"cnn": lambda: online._cnn(x),
+                "mel": lambda: online._mel_step(window, mask, h, h),
+                "gen": lambda: online._gen(mels, prefix=False)}
+    return {name: cuda_ms(fn, reps=reps) for name, fn in programs.items()}
+
+
+def phase_online(torch, pipe, rng, tag: str, fused: bool):
+    """Stream a 250-frame video 16 frames a push through online streaming; check launches.
+
+    One warm-up stream first. The counts are set to 0 just before the timed
+    stream and read just after: the single-direction kernel twice per emitted
+    mel chunk (forward and backward, hold mode), K1 never; on the fused
+    configuration K3 v1 and v2 twice each per generator window and K4 17
+    times per CNN chunk.
+    """
+    from mri2speech_tpu_torch.infer.online import OnlineVideoToSpeech
+
+    online = OnlineVideoToSpeech.from_pipeline(pipe, chunk=ONLINE_CHUNK,
+                                               lookahead=ONLINE_LOOKAHEAD)
+    W = online.W
+    _stream(torch, online, video(rng, ONLINE_FRAMES), W)  # warm-up stream
+    online.reset()
+    frames = video(rng, ONLINE_FRAMES)
+    calls = _count_calls(online, ("_cnn", "_gen"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    audio, mel, walls = _stream(torch, online, frames, W)
+    launches = read_launches()
+    del online._cnn, online._gen
+    n_mel, n_cnn, n_gen = online._n_mel_chunks, calls["_cnn"], calls["_gen"]
+    check(audio.shape == (ONLINE_FRAMES * online.hop,), f"{tag}: audio shape {audio.shape}")
+    check(mel.shape == (ONLINE_FRAMES, 64), f"{tag}: mel shape {mel.shape}")
+    check(bool(np.isfinite(audio).all() and np.isfinite(mel).all()), f"{tag}: not finite")
+    want = {"lstm_recurrence": 2 * n_mel}
+    if fused:
+        want.update(mrf_stage_pallas=2 * n_gen, mrf_stage_pallas_v2=2 * n_gen,
+                    mbconv_block_pallas=17 * n_cnn)
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"{tag}: {name} launches {n} != {want.get(name, 0)}")
+    budget = W * online.hop / SR
+    med, worst = statistics.median(walls), max(walls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] {ONLINE_FRAMES} frames pushed {W} at a time (chunk {W}, lookahead "
+          f"{ONLINE_LOOKAHEAD}; r={online.r} l={online.l} g={online.g} K={online.K}): "
+          f"{len(walls)} pushes, wall per push (device-synchronised) median {med * 1e3:.3f} ms, "
+          f"worst {worst * 1e3:.3f} ms; steady RTF {med / budget:.5f} against the chunk's "
+          f"{budget * 1e3:.1f} ms of audio; latency_frames {online.latency_frames} "
+          f"({online.latency_frames * online.hop / SR:.3f} s); peak "
+          f"torch.cuda.max_memory_allocated {peak:.3f} GiB", flush=True)
+    print(f"[{tag}] {n_mel} mel chunks, {n_cnn} CNN chunks, {n_gen} generator windows; "
+          "launches " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; per mel chunk: lstm_recurrence {launches['lstm_recurrence'] / n_mel:g}, "
+          f"bilstm_recurrence {launches['bilstm_recurrence'] / n_mel:g}"
+          + (f"; per generator window: mrf_stage_pallas "
+             f"{launches['mrf_stage_pallas'] / n_gen:g} + mrf_stage_pallas_v2 "
+             f"{launches['mrf_stage_pallas_v2'] / n_gen:g}; per CNN chunk: mbconv_block_pallas "
+             f"{launches['mbconv_block_pallas'] / n_cnn:g}" if fused else ""), flush=True)
+    stages = online_stage_ms(torch, online, frames)
+    print(f"[{tag}] stream time by program, one steady chunk (CUDA events, median of 10): "
+          + ", ".join(f"{n} {v:.3f} ms" for n, v in stages.items())
+          + f"; sum {sum(stages.values()):.3f} ms", flush=True)
+    # one steady push under the profiler: the stream's first 8 chunks, then the 9th
+    online.reset()
+    online.push(frames[:8 * W])
+    torch.cuda.synchronize()
+    profile = phase_profile(torch, lambda: online.push(frames[8 * W:9 * W]),
+                            f"profile-{tag}", f"one steady push of {W} frames")
+    return dict(tag=tag, launches=launches, n_mel=n_mel, n_cnn=n_cnn, n_gen=n_gen,
+                walls=walls, stages=stages, profile=profile)
+
+
+def _max_diff(a, b) -> float:
+    return float(np.abs(a - b).max())
+
+
+def phase_online_vs_offline(torch, pipe, rng):
+    """Online with lookahead >= T against the offline pipeline (frame_bucket 1), on the card.
+
+    mel_db, and the audio before the stream's last frame: ONLINE_TOL. The last
+    frame is a boundary the two compute differently (infer/online.py): there
+    the audio is held to LAST_FRAME_TOL except its last 6 samples; and every
+    sample of the stream to ONLINE_TOL against the padded reference, the
+    offline generator run on the offline mel_log followed by 32 zero frames.
+    """
+    from mri2speech_tpu_torch.infer.online import OnlineVideoToSpeech
+    from mri2speech_tpu_torch.infer.pipeline import VideoToSpeechPipeline
+    from mri2speech_tpu_torch.ops.scaler import MelScaler
+
+    T, hop = 70, pipe.hop_total
+    frames = video(rng, T)
+    scaler = MelScaler(mean=pipe.mean.cpu().numpy(), std=pipe.std.cpu().numpy())
+    offline = VideoToSpeechPipeline(pipe.acoustic_model, pipe.generator, scaler,
+                                    hop_total=hop, frame_bucket=1,
+                                    input_norm=pipe.input_norm, device=pipe.device)
+    audio_ref, mel_ref, mel_log = offline(frames)
+    online = OnlineVideoToSpeech.from_pipeline(pipe, chunk=ONLINE_CHUNK, lookahead=T + 16)
+    audio, mel, _ = _stream(torch, online, frames, ONLINE_CHUNK)
+    check(audio.shape == audio_ref.shape and mel.shape == mel_ref.shape,
+          f"online-vs-offline shapes {audio.shape} {mel.shape}")
+    padded = np.concatenate([mel_log, np.zeros((32, mel_log.shape[1]), np.float32)])
+    with torch.inference_mode():
+        audio_pad = pipe.generator(torch.from_numpy(padded.T[None].copy()).to(pipe.device))
+        audio_pad = audio_pad[0, 0, :T * hop].cpu().numpy()
+    diff = np.abs(audio - audio_ref)
+    d = {"mel_db": _max_diff(mel, mel_ref), "body": float(diff[:-hop].max()),
+         "last_frame": float(diff[-hop:-6].max()), "last6": float(diff[-6:].max()),
+         "padded": _max_diff(audio, audio_pad)}
+    at = hop - int(np.argmax(diff[-hop:-6]))  # its position, counted from the end
+    print(f"[online-vs-offline] T={T}, lookahead {T + 16} (r={online.r}), fp32 path on the card: "
+          f"max|mel_db diff| {d['mel_db']:.3e} (tol {ONLINE_TOL['mel_db']:g}); max|audio diff| "
+          f"before the last frame {d['body']:.3e} (tol {ONLINE_TOL['audio']:g}), in the last "
+          f"frame except its last 6 samples {d['last_frame']:.3e} (tol {LAST_FRAME_TOL:g}, {at} "
+          f"samples from the end), last 6 samples {d['last6']:.3e}; against the offline "
+          f"generator on the mel padded with 32 zero frames, every sample {d['padded']:.3e} "
+          f"(tol {ONLINE_TOL['audio']:g})", flush=True)
+    for key, tol in (("mel_db", ONLINE_TOL["mel_db"]), ("body", ONLINE_TOL["audio"]),
+                     ("last_frame", LAST_FRAME_TOL), ("padded", ONLINE_TOL["audio"])):
+        check(d[key] <= tol, f"online-vs-offline {key}: {d[key]} > {tol}")
+
+
+def phase_online_card_vs_cpu(torch, pipe, fused_pipe, rng):
+    """40 frames at the defaults through online streaming on the card and on the CPU.
+
+    Both configurations, each against its own CPU stream: fp32 under
+    ONLINE_TOL, fused under FUSED_TOL. Controls, on the card against the fp32
+    CPU stream: a stream with its forward LSTM restarted from zeros at every
+    chunk must fail ONLINE_TOL's mel_db limit, one whose generator windows
+    lack their left context (l = 0) its audio limit; the fused card stream
+    against the fp32 one must fail FUSED_TOL's mel_db limit.
+    """
+    from mri2speech_tpu_torch.infer.online import OnlineVideoToSpeech
+
+    class Unseeded(OnlineVideoToSpeech):
+        def _mel_step(self, feat_chunks, mask, h, c):
+            return super()._mel_step(feat_chunks, mask, torch.zeros_like(h),
+                                     torch.zeros_like(c))
+
+    frames = video(rng, 40)
+
+    def run(p, cls=OnlineVideoToSpeech, no_left_context=False):
+        online = cls.from_pipeline(p, chunk=ONLINE_CHUNK, lookahead=ONLINE_LOOKAHEAD)
+        if no_left_context:
+            online.l, online.K = 0, 1 + online.g
+        audio, mel, _ = _stream(torch, online, frames, ONLINE_CHUNK)
+        return {"audio": audio, "mel_db": mel}
+
+    def diffs(a, b):
+        for name in a:
+            check(a[name].shape == b[name].shape, f"{name} shapes {a[name].shape} {b[name].shape}")
+        return {name: _max_diff(a[name], b[name]) for name in a}
+
+    card = {"fp32": run(pipe), "fused": run(fused_pipe), "unseeded": run(pipe, Unseeded),
+            "no_left": run(pipe, no_left_context=True)}
+    t0 = time.perf_counter()
+    cpu = {"fp32": run(build_pipeline("cpu", seed=0)),
+           "fused": run(build_pipeline("cpu", seed=0, fused=True))}
+    cpu_s = time.perf_counter() - t0
+    for tag, key, tol in (("online-card-vs-cpu", "fp32", ONLINE_TOL),
+                          ("fused-online-card-vs-cpu", "fused", FUSED_TOL)):
+        d = diffs(card[key], cpu[key])
+        print(f"[{tag}] T=40 " + ", ".join(
+            f"max|{n} card - {n} cpu| {v:.3e} (tol {tol[n]:g})" for n, v in d.items()), flush=True)
+        for n, v in d.items():
+            check(v <= tol[n], f"{tag} {n}: {v} > {tol[n]}")
+    controls = {"forward LSTM restarted from zeros at every chunk": ("unseeded", "mel_db"),
+                "generator windows without their left context": ("no_left", "audio")}
+    for what, (key, n) in controls.items():
+        d = diffs(card[key], cpu["fp32"])
+        print(f"[online-card-vs-cpu] control, {what}, card against the CPU: " + ", ".join(
+            f"max|{m} diff| {v:.3e}" for m, v in d.items()) + f"; must fail the {n} limit",
+            flush=True)
+        check(d[n] > ONLINE_TOL[n], f"online control ({what}): {n} {d[n]} within the limit "
+              f"{ONLINE_TOL[n]}, which then cannot tell that fault")
+    gap = diffs(card["fused"], card["fp32"])
+    print("[fused-online-card-vs-cpu] control, fused vs fp32 stream on the card: "
+          + ", ".join(f"max|{n} diff| {v:.3e}" for n, v in gap.items())
+          + f"; CPU streams (builds included) {cpu_s:.1f} s", flush=True)
+    check(gap["mel_db"] > FUSED_TOL["mel_db"],
+          f"fused vs fp32 online streams differ by {gap['mel_db']} dB, within the fused "
+          f"limit {FUSED_TOL['mel_db']}: that limit cannot tell bf16 operands from fp32")
+
+
+def phase_online_incremental(torch, pipe, rng):
+    """16-frame pushes against one bulk push of the same 100 frames.
+
+    Under cuDNN's default algorithms, the serving configuration, within
+    INCREMENTAL_TOL: cuDNN may pick a generator convolution that sums with
+    atomics, and then the same window run twice differs in the last bit.
+    Under its deterministic algorithms, bit for bit.
+    """
+    from mri2speech_tpu_torch.infer.online import OnlineVideoToSpeech
+
+    frames = video(rng, 100)
+    online = OnlineVideoToSpeech.from_pipeline(pipe, chunk=ONLINE_CHUNK,
+                                               lookahead=ONLINE_LOOKAHEAD)
+    deterministic = torch.backends.cudnn.deterministic
+    runs = {}
+    try:
+        for mode in ("default", "deterministic"):
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            bulk = _stream(torch, online.fork(), frames, len(frames))
+            inc = _stream(torch, online.fork(), frames, ONLINE_CHUNK)
+            runs[mode] = {n: (_max_diff(b, i), np.array_equal(b, i))
+                          for n, b, i in zip(("audio", "mel_db"), bulk, inc)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"[online-incremental] T=100, {ONLINE_CHUNK}-frame pushes vs one bulk push: " + "; ".join(
+        f"cuDNN {mode}: " + ", ".join(f"max|{n} diff| {d:.3e} (bit-identical {same})"
+                                      for n, (d, same) in r.items())
+        for mode, r in runs.items()) + "; limits: default "
+        + ", ".join(f"{n} {v:g}" for n, v in INCREMENTAL_TOL.items())
+        + ", deterministic bit for bit", flush=True)
+    for n, (d, _) in runs["default"].items():
+        check(d <= INCREMENTAL_TOL[n], f"online-incremental, cuDNN default, {n}: {d} > "
+              f"{INCREMENTAL_TOL[n]}")
+    check(all(same for _, same in runs["deterministic"].values()),
+          "online-incremental: under cuDNN's deterministic algorithms, pushes of 16 frames "
+          "differ from one bulk push")
 
 
 def weight_cache_check(pipe, reps: int = 50) -> float:
@@ -584,27 +1029,67 @@ def _per_request(cases, key):
     return sum(c[key] * c.get("count", 1) for c in cases)
 
 
-def kernel_rows(k1_cases, k3_cases, k4_cases, unfused, fused):
+def kernel_rows(k1_cases, k2a_cases, k2b_cases, k3_cases, k4_cases, paths):
     """The `kernels` JSON line: each entry point at the main paths' shapes.
 
-    K1 at T=256 (one launch per request). K3 and K4: the sum over the shapes
-    one 250-frame request gives the entry point (K3 v1: stages 0-1, v2: stages
-    2-3; K4: 3 + 5 + 9 blocks), so ms, plain_ms, library_ms and bound_ms are
-    per request. launches: the count on the path that runs the kernel, with
-    both paths' counts beside it.
+    K1 at T=256 (one launch per request). K2a per emitted online chunk: its
+    two hold-mode recurrences (T=16 forward, T=32 reverse) summed, the
+    freeze mode at T=256 beside them. K2b at T=256, B=1. K3 and K4: the sum
+    over the shapes one 250-frame request gives the entry point (K3 v1:
+    stages 0-1, v2: stages 2-3; K4: 3 + 5 + 9 blocks), so ms, plain_ms,
+    library_ms and bound_ms are per request; online_ms is the kernel's time
+    per steady generator window (K3) or CNN chunk (K4) online. launches: the
+    count of the C entry on the path that runs it, with every path's count
+    beside it; K1 and K2b share theirs (`bilstm_recurrence_f32`), and K2b's
+    own Python entry is on no path, as in the JAX package.
     """
+    unfused, fused, online = paths["unfused"], paths["fused"], paths["online"]
+
+    def by_path(*names):
+        return {tag: sum(p["launches"][n] for n in names) for tag, p in paths.items()}
+
     k1 = next(c for c in k1_cases if c["T"] == 256)
+    held = [c for c in k2a_cases if c["mode"] == "hold"]
+    freeze = next(c for c in k2a_cases if c["mode"] == "freeze")
+    k2b = next(c for c in k2b_cases if c["B"] == 1)
     rows = [{
         "name": "bilstm_recurrence", "route": "cuda",
         "source": "mri2speech_tpu_torch/csrc/bilstm_recurrence.cu",
         "replaces": "mri2speech_tpu/ops/pallas_lstm.py:304",
         "launches": unfused["launches"]["bilstm_recurrence"],
-        "launches_by_path": {p["tag"]: p["launches"]["bilstm_recurrence"]
-                             for p in (unfused, fused)},
+        "launches_by_path": by_path("bilstm_recurrence"),
         "max_abs_err": max(max(c["err_real"], c["err_pad"]) for c in k1_cases),
         "ms": k1["kernel_ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "shape": {"T": k1["T"], "B": k1["B"], "H": H},
+    }, {
+        "name": "lstm_recurrence_pallas", "route": "cuda",
+        "source": "mri2speech_tpu_torch/csrc/bilstm_recurrence.cu",
+        "replaces": "mri2speech_tpu/ops/pallas_lstm.py:82",
+        "entry_points": ["lstm_recurrence (hold mode: lstm_direction, the online path)",
+                         "lstm_recurrence_pallas (freeze mode)"],
+        "launches": online["launches"]["lstm_recurrence"],
+        "launches_by_path": by_path("lstm_recurrence"),
+        "max_abs_err": max(c["err"] for c in k2a_cases),
+        "ms": _per_request(held, "kernel_ms"), "kernel_ms": _per_request(held, "kernel_ms"),
+        "plain_ms": _per_request(held, "plain_ms"), "bound_ms": _per_request(held, "bound_ms"),
+        "bound_by": held[0]["bound_by"], "library_ms": _per_request(held, "library_ms"),
+        "per": "emitted online chunk: T=16 forward seeded + T=32 reverse, B=1, hold mode",
+        "shape": [{k: c[k] for k in ("T", "B", "reverse", "seeded")} for c in held],
+        "freeze_T256": {k: freeze[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by")},
+    }, {
+        "name": "bilstm_recurrence_pallas", "route": "cuda",
+        "source": "mri2speech_tpu_torch/csrc/bilstm_recurrence.cu",
+        "replaces": "mri2speech_tpu/ops/pallas_lstm.py:167",
+        "entry_points": ["bilstm_recurrence_pallas (K2b: tests and chip_smoke.py only)",
+                         "bilstm_recurrence (K1: the offline paths)"],
+        "launches": unfused["launches"]["bilstm_recurrence"],
+        "launches_by_path": by_path("bilstm_recurrence"),
+        "max_abs_err": max(c["err"] for c in k2b_cases),
+        "ms": k2b["kernel_ms"], "kernel_ms": k2b["kernel_ms"], "plain_ms": k2b["plain_ms"],
+        "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"],
+        "library_ms": k2b["library_ms"], "shape": {"T": k2b["T"], "B": k2b["B"], "H": H},
     }]
     for name, replaces in (("mrf_stage_pallas", "mri2speech_tpu/ops/pallas_mrf.py:352"),
                            ("mrf_stage_pallas_v2", "mri2speech_tpu/ops/pallas_mrf.py:259"),
@@ -612,6 +1097,7 @@ def kernel_rows(k1_cases, k3_cases, k4_cases, unfused, fused):
         is_k3 = name.startswith("mrf")
         all_cases = [c for c in k3_cases if c["name"] == name] if is_k3 else k4_cases
         path = [c for c in all_cases if "kernel_ms" in c]
+        online_cases = [c for c in all_cases if "online_ms" in c]
         bound_by = max(("operations", "bytes"), key=lambda b: sum(
             c["bound_ms"] * c.get("count", 1) for c in path if c["bound_by"] == b))
         rows.append({
@@ -620,7 +1106,7 @@ def kernel_rows(k1_cases, k3_cases, k4_cases, unfused, fused):
                       + ("mrf_stage.cu" if is_k3 else "mbconv_block.cu"),
             "replaces": replaces,
             "launches": fused["launches"][name],
-            "launches_by_path": {p["tag"]: p["launches"][name] for p in (unfused, fused)},
+            "launches_by_path": by_path(name),
             "max_abs_err": max(c["err_bf16"] for c in all_cases),
             "max_abs_err_fp32_operands": max(c["err_fp32"] for c in all_cases),
             "min_control_rel": min(c["control"] for c in all_cases),
@@ -629,6 +1115,9 @@ def kernel_rows(k1_cases, k3_cases, k4_cases, unfused, fused):
             "plain_ms": _per_request(path, "plain_ms"), "bound_ms": _per_request(path, "bound_ms"),
             "bound_by": bound_by, "library_ms": _per_request(path, "library_ms"),
             "per": "250-frame request (bucket 256), bf16 operands",
+            "online_ms": _per_request(online_cases, "online_ms"),
+            "online_per": "steady online generator window (48 frames)" if is_k3
+                          else "online CNN chunk (16 frames)",
             "shape": [{k: c[k] for k in ("B", "T", "C", "N", "HW", "E", "R", "count") if k in c}
                       for c in path],
         })
@@ -664,6 +1153,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     k1_cases = phase_k1(torch, bilstm)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    w_hh = [((torch.rand(4 * H, H, generator=g) * 2 - 1) / H ** 0.5).cuda().t() for _ in "fb"]
+    k2a_cases = phase_k2a(torch, bilstm, w_hh[0])
+    k2b_cases = phase_k2b(torch, bilstm, w_hh)
     rng = np.random.default_rng(0)
     pipe = build_pipeline("cuda", seed=0)
     k3_cases = phase_k3(torch, mrf, pipe.generator)
@@ -671,7 +1164,6 @@ def main() -> int:
 
     names = ("bilstm_recurrence", "mrf_stage_pallas", "mrf_stage_pallas_v2", "mbconv_block_pallas")
     unfused = phase_pipeline(torch, dict(zip(names, (1, 0, 0, 0))), pipe, rng, "pipeline")
-    unfused["tag"] = "unfused"
     frames70 = video(rng, 70)
     card_unfused = phase_card_vs_cpu(
         pipe, frames70, {"mel_db": MEL_DB_TOL, "mel_log": MEL_LOG_TOL, "audio": AUDIO_TOL},
@@ -681,7 +1173,6 @@ def main() -> int:
     # per request: K1 once, K3 v1 on stages 0-1 and v2 on stages 2-3, K4 on 17 blocks
     fused = phase_pipeline(torch, dict(zip(names, (1, 2, 2, 17))), fused_pipe, rng,
                            "fused-pipeline")
-    fused["tag"] = "fused"
     card_fused = phase_card_vs_cpu(fused_pipe, frames70, FUSED_TOL, "fused-card-vs-cpu",
                                    fused=True)
     gaps = {n: float(np.abs(a - b).max())
@@ -693,10 +1184,17 @@ def main() -> int:
           f"fused vs fp32 path differ by {gaps['mel_db']} dB, within the fused card-vs-CPU "
           f"limit {FUSED_TOL['mel_db']}: that limit cannot tell bf16 operands from fp32")
     frames250 = video(rng, 250)
-    phase_profile(torch, pipe, frames250, "profile-unfused")
-    phase_profile(torch, fused_pipe, frames250, "profile-fused")
+    for p, tag in ((pipe, "profile-unfused"), (fused_pipe, "profile-fused")):
+        p(frames250)  # warm
+        phase_profile(torch, lambda: p(frames250), tag, "one warm T=250 request")
     weight_cache_check(fused_pipe)
-    kernels = kernel_rows(k1_cases, k3_cases, k4_cases, unfused, fused)
+    online = phase_online(torch, pipe, rng, "online", fused=False)
+    fused_online = phase_online(torch, fused_pipe, rng, "fused-online", fused=True)
+    phase_online_vs_offline(torch, pipe, rng)
+    phase_online_card_vs_cpu(torch, pipe, fused_pipe, rng)
+    phase_online_incremental(torch, pipe, rng)
+    paths = {"unfused": unfused, "fused": fused, "online": online, "fused-online": fused_online}
+    kernels = kernel_rows(k1_cases, k2a_cases, k2b_cases, k3_cases, k4_cases, paths)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from mri2speech_tpu_torch.ops.bilstm import bilstm_sum
+from mri2speech_tpu_torch.ops.bilstm import bilstm_sum, lstm_recurrence
 
 
 def lstm_direction(
@@ -26,34 +26,22 @@ def lstm_direction(
     init_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     return_state: bool = False,
 ):
-    """One LSTM direction over (B, T, C) -> (B, T, H), as a plain per-step loop.
+    """One LSTM direction over (B, T, C) -> (B, T, H).
 
     w_ih (C, 4H), w_hh (H, 4H), bias (4H,) in the JAX layout. `mask` (B, T),
     1 = valid: padded steps hold (h, c) unchanged. `init_state` ((B, H), (B, H))
-    seeds (h, c); `return_state=True` also returns the final (h, c).
+    seeds (h, c); `return_state=True` also returns the final (h, c). The input
+    projection is one matmul; the recurrence is `ops/bilstm.py::lstm_recurrence`
+    (the CUDA kernel on a card, its per-step plain version on the CPU).
     """
-    B, T, _ = x_seq.shape
-    H = w_hh.shape[0]
     xg = torch.matmul(x_seq, w_ih) + bias  # input projection for all steps
-    if init_state is None:
-        h = c = x_seq.new_zeros((B, H))
-    else:
-        h, c = init_state[0].to(x_seq.dtype), init_state[1].to(x_seq.dtype)
-    ys = [None] * T
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        i, f, g, o = (xg[:, t] + h @ w_hh).chunk(4, dim=-1)
-        c1 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h1 = torch.sigmoid(o) * torch.tanh(c1)
-        if mask is None:
-            h, c = h1, c1
-        else:
-            m = mask[:, t, None].to(x_seq.dtype)
-            h = m * h1 + (1.0 - m) * h
-            c = m * c1 + (1.0 - m) * c
-        ys[t] = h
-    out = torch.stack(ys, dim=1) if T else x_seq.new_zeros((B, 0, H))
+    m = None if mask is None else mask.transpose(0, 1)
+    ys, state = lstm_recurrence(
+        xg.transpose(0, 1), w_hh, m, reverse=reverse, init_state=init_state
+    )
+    out = ys.transpose(0, 1)
     if return_state:
-        return out, (h, c)
+        return out, state
     return out
 
 
@@ -75,7 +63,8 @@ class BiLSTMSumMerge(nn.Module):
 
     impl="kernel" (serving): the recurrence goes through `ops/bilstm.py` (the
     CUDA kernel on a card, its plain version on the CPU), gate-freeze masking.
-    impl="scan": the plain per-step loop of :func:`lstm_direction`, mask-hold.
+    impl="scan": two :func:`lstm_direction` calls, mask-hold (two kernel launches
+    on a card).
     """
 
     def __init__(self, input_size: int, hidden_size: int = 640, impl: str = "kernel") -> None:

@@ -6,9 +6,10 @@ package, so on a machine with a card and no JAX it runs on its own:
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
 Tolerances:
-* K1 (BiLSTM) 1e-4: fp32 dot products summed in another order, carried
+* K1 (BiLSTM) and the single-direction entries of the same kernel (K2a,
+  hold mode, K2b) 1e-4: fp32 dot products summed in another order, carried
   through T steps of contractive gates (differences of ~2e-7 are seen at
-  H=640).
+  H=640). The held steps and the final state are exact in both versions.
 * K3 (MRF stage) and K4 (MBConv block) with fp32 operands: 1e-4 absolute on
   outputs of size ~1-5 (fp32 FMAs against cuDNN/cuBLAS fp32 with TF32 off,
   summed in another order).
@@ -21,12 +22,15 @@ Tolerances:
   controls 6.0e-5 to 2.0e-4; K4 6.3e-8 to 3.0e-5 against 4.2e-4 to 5.7e-4.
 * the tiny fused pipeline, card vs CPU: mel_db 1e-2 dB, mel_log 2.5e-3,
   audio 1e-4, as chip_smoke.py's fp32 card-vs-CPU check.
+* the tiny online stream, card vs CPU: audio 1e-5, mel_db 1e-3 dB, as the
+  tiny pipeline; fused, as the tiny fused pipeline.
 """
 import numpy as np
 import pytest
 import torch
 
 from mri2speech_tpu_torch.config import default_vocoder_config
+from mri2speech_tpu_torch.infer.online import OnlineVideoToSpeech
 from mri2speech_tpu_torch.infer.pipeline import VideoToSpeechPipeline
 from mri2speech_tpu_torch.models.effnetv2 import StageSpec
 from mri2speech_tpu_torch.models.vocoder import FUSED_MODE
@@ -70,10 +74,10 @@ def test_kernel_matches_plain_version_on_card(cuda_device, T, B, H):
     mask = np.ones((T, B), np.float32)
     mask[T - 3:, 0] = 0.0
     xf, xb, wf, wb, m = [torch.from_numpy(a).to(cuda_device) for a in (*xs, *ws, mask)]
-    before = bilstm.launches
+    before = bilstm.launches["bilstm_recurrence"]
     kf, kb = bilstm.bilstm_recurrence(xf, xb, wf, wb, m)
     torch.cuda.synchronize()
-    assert bilstm.launches == before + 1
+    assert bilstm.launches["bilstm_recurrence"] == before + 1
     rf, rb = bilstm.bilstm_recurrence_reference(
         bilstm.freeze_padded_steps(xf, m), bilstm.freeze_padded_steps(xb, m), wf, wb
     )
@@ -93,6 +97,114 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
         bilstm.bilstm_recurrence(x, x, w[:, :16], w[:, :16])
 
 
+def _lengths(T, B):
+    return [T - 5] if B == 1 else [T, T - 6, T - 13][:B]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("T,B,H", [(16, 1, 640), (32, 1, 640), (23, 3, 48)])
+def test_single_direction_kernel_matches_plain_version_on_card(cuda_device, T, B, H, reverse):
+    """Freeze mode (K2a) and hold mode with seed and final state (the scan's CUDA route)."""
+    rng = np.random.default_rng(T + B)
+    x = torch.from_numpy(rng.standard_normal((T, B, 4 * H)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((H, 4 * H)) / np.sqrt(H)).astype(np.float32))
+    w = w.to(cuda_device)
+    h0, c0 = (torch.from_numpy((rng.standard_normal((B, H)) * 0.5).astype(np.float32))
+              .to(cuda_device) for _ in "hc")
+    mask = torch.zeros(T, B, device=cuda_device)
+    for b, n in enumerate(_lengths(T, B)):
+        mask[:n, b] = 1.0
+    before = dict(bilstm.launches)
+    frozen = bilstm.lstm_recurrence_pallas(x, w, mask, reverse=reverse)
+    held, (h, c) = bilstm.lstm_recurrence(x, w, mask, reverse=reverse, init_state=(h0, c0))
+    torch.cuda.synchronize()
+    # both entries launch the single-direction C entry
+    assert bilstm.launches == dict(before, lstm_recurrence=before["lstm_recurrence"] + 2)
+    ref, _ = bilstm.lstm_recurrence_reference(bilstm.freeze_padded_steps(x, mask), w,
+                                              reverse=reverse)
+    torch.testing.assert_close(frozen, ref, atol=ATOL, rtol=0)
+    ref, (hr, cr) = bilstm.lstm_recurrence_reference(x, w, mask, reverse=reverse, h0=h0, c0=c0)
+    torch.testing.assert_close(held, ref, atol=ATOL, rtol=0)
+    torch.testing.assert_close(h, hr, atol=ATOL, rtol=0)
+    torch.testing.assert_close(c, cr, atol=ATOL, rtol=0)
+    pad = mask == 0
+    if reverse:  # trailing padding comes first: held at the seed, exactly
+        assert torch.equal(held[pad], h0[None].expand(T, B, H)[pad])
+
+
+@pytest.mark.cuda
+def test_unchunked_bilstm_entry_matches_plain_version_on_card(cuda_device):
+    """K2b, and bf16 pre-activations through the K1 entry (fp32 inside, bf16 out)."""
+    T, B, H = 70, 2, 640
+    rng = np.random.default_rng(12)
+    xs = [torch.from_numpy(rng.standard_normal((T, B, 4 * H)).astype(np.float32)).to(cuda_device)
+          for _ in range(2)]
+    ws = [torch.from_numpy((rng.standard_normal((H, 4 * H)) / np.sqrt(H)).astype(np.float32))
+          .to(cuda_device) for _ in range(2)]
+    mask = torch.ones(T, B, device=cuda_device)
+    mask[50:, 1] = 0.0
+    before = bilstm.launches["bilstm_recurrence"]
+    kf, kb = bilstm.bilstm_recurrence_pallas(*xs, *ws, mask)
+    torch.cuda.synchronize()
+    assert bilstm.launches["bilstm_recurrence"] == before + 1  # K1's C entry
+    rf, rb = bilstm.bilstm_recurrence_reference(
+        *(bilstm.freeze_padded_steps(x, mask) for x in xs), *ws)
+    torch.testing.assert_close(kf, rf, atol=ATOL, rtol=0)
+    torch.testing.assert_close(kb, rb, atol=ATOL, rtol=0)
+    xb = [x.to(torch.bfloat16) for x in xs]
+    bf = bilstm.bilstm_recurrence(*xb, *ws, mask)
+    f32 = bilstm.bilstm_recurrence(*(x.float() for x in xb), *ws, mask)
+    assert bf[0].dtype == torch.bfloat16
+    assert torch.equal(bf[0], f32[0].to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_single_direction_wrappers_reject_bad_inputs(cuda_device):
+    x = torch.zeros(4, 1, 32, device=cuda_device)
+    w = torch.zeros(8, 32, device=cuda_device)
+    with pytest.raises(TypeError):
+        bilstm.lstm_recurrence_pallas(x.double(), w)
+    with pytest.raises(ValueError):
+        bilstm.lstm_recurrence_pallas(x, w.cpu())
+    with pytest.raises(ValueError):
+        bilstm.lstm_recurrence(x, w, torch.ones(4, 1))  # mask on the CPU
+    with pytest.raises(ValueError):
+        bilstm.lstm_recurrence(x, w, init_state=(torch.zeros(2, 8, device=cuda_device),) * 2)
+
+
+@pytest.mark.cuda
+def test_tiny_online_stream_card_matches_cpu(cuda_device):
+    """The online path on the card: two single-direction launches per mel chunk, no K1."""
+    params, stats = random_acoustic_params(seed=47, spec=TINY_SPEC, stem_channels=8,
+                                           rnn_hidden=16)
+    h = dict(default_vocoder_config(upsample_initial_channel=16))
+    gen_params = random_generator_params(h, seed=48)
+    scaler = MelScaler(mean=np.linspace(-40, -10, 64).astype(np.float32),
+                       std=np.full(64, 5.0, np.float32))
+    frames = (np.random.default_rng(49).random((37, 64, 64)) * 255).astype(np.uint8)
+
+    def stream(device):
+        model = acoustic_model_from_jax(params, stats, rnn_hidden=16, cnn_spec=TINY_SPEC,
+                                        cnn_stem=8)
+        online = OnlineVideoToSpeech(model, generator_from_jax(gen_params, h), scaler,
+                                     chunk=8, lookahead=8, input_norm="zscore_minmax",
+                                     device=device)
+        pieces = [online.push(frames[i:i + 5]) for i in range(0, len(frames), 5)]
+        pieces.append(online.flush())
+        return (np.concatenate([a for a, _ in pieces]),
+                np.concatenate([m for _, m in pieces if m.size])), online
+
+    before = dict(bilstm.launches)
+    card, online = stream(cuda_device)
+    assert bilstm.launches == dict(before, lstm_recurrence=before["lstm_recurrence"]
+                                   + 2 * online._n_mel_chunks)
+    cpu, _ = stream("cpu")
+    assert card[0].shape == cpu[0].shape == (37 * 420,)
+    for name, c, r, tol in zip(("audio", "mel_db"), card, cpu, (1e-5, 1e-3)):
+        np.testing.assert_allclose(c, r, atol=tol, rtol=0, err_msg=name)
+
+
 @pytest.mark.cuda
 def test_tiny_pipeline_card_matches_cpu(cuda_device):
     """Same weights on the card and on the CPU; the card goes through K1 once per request."""
@@ -110,9 +222,9 @@ def test_tiny_pipeline_card_matches_cpu(cuda_device):
                                      frame_bucket=8, input_norm="zscore_minmax", device=device)
 
     frames = (np.random.default_rng(43).random((13, 64, 64)) * 255).astype(np.uint8)
-    before = bilstm.launches
+    before = bilstm.launches["bilstm_recurrence"]
     card = pipe(cuda_device)(frames)
-    assert bilstm.launches == before + 1
+    assert bilstm.launches["bilstm_recurrence"] == before + 1
     cpu = pipe("cpu")(frames)
     for name, c, r, tol in zip(("audio", "mel_db", "mel_log"), card, cpu, (1e-5, 1e-3, 1e-4)):
         np.testing.assert_allclose(c, r, atol=tol, rtol=0, err_msg=name)
@@ -242,11 +354,54 @@ def test_tiny_fused_pipeline_card_matches_cpu(cuda_device):
                                      input_norm="zscore_minmax", device=device)
 
     frames = (np.random.default_rng(46).random((13, 64, 64)) * 255).astype(np.uint8)
-    before = (bilstm.launches, dict(mrf.launches), mbconv.launches)
+    before = (bilstm.launches["bilstm_recurrence"], dict(mrf.launches), mbconv.launches)
     card = pipe(cuda_device)(frames)
-    assert (bilstm.launches, mbconv.launches) == (before[0] + 1, before[2] + 1)
+    assert (bilstm.launches["bilstm_recurrence"], mbconv.launches) == (before[0] + 1,
+                                                                      before[2] + 1)
     # stages 0-1 through the v1 entry point, 2-3 through v2
     assert mrf.launches == {k: n + 2 for k, n in before[1].items()}
     cpu = pipe("cpu")(frames)
     for name, c, r, tol in zip(("audio", "mel_db", "mel_log"), card, cpu, (1e-4, 1e-2, 2.5e-3)):
+        np.testing.assert_allclose(c, r, atol=tol, rtol=0, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_tiny_fused_online_stream_card_matches_cpu(cuda_device):
+    """The fused online path: per mel chunk two single-direction launches; per
+    generator window K3 once per stage; per CNN chunk K4 once per fused block."""
+    params, stats = random_acoustic_params(seed=50, spec=FUSED_SPEC, stem_channels=8,
+                                           rnn_hidden=16)
+    h = dict(default_vocoder_config(upsample_initial_channel=64))
+    gen_params = random_generator_params(h, seed=51)
+    scaler = MelScaler(mean=np.linspace(-40, -10, 64).astype(np.float32),
+                       std=np.full(64, 5.0, np.float32))
+    frames = (np.random.default_rng(52).random((37, 64, 64)) * 255).astype(np.uint8)
+
+    def stream(device):
+        model = acoustic_model_from_jax(params, stats, rnn_hidden=16, cnn_spec=FUSED_SPEC,
+                                        cnn_stem=8, fuse_ir=True)
+        online = OnlineVideoToSpeech(model, generator_from_jax(gen_params, h,
+                                                               fuse_mode=FUSED_MODE),
+                                     scaler, chunk=8, lookahead=8,
+                                     input_norm="zscore_minmax", device=device)
+        calls = {"cnn": 0, "gen": 0}
+        for name in calls:
+            def counted(*args, _fn=getattr(online, "_" + name), _name=name, **kwargs):
+                calls[_name] += 1
+                return _fn(*args, **kwargs)
+            setattr(online, "_" + name, counted)
+        pieces = [online.push(frames[i:i + 5]) for i in range(0, len(frames), 5)]
+        pieces.append(online.flush())
+        return (np.concatenate([a for a, _ in pieces]),
+                np.concatenate([m for _, m in pieces if m.size])), online, calls
+
+    before = (dict(bilstm.launches), dict(mrf.launches), mbconv.launches)
+    card, online, calls = stream(cuda_device)
+    assert bilstm.launches == dict(before[0], lstm_recurrence=before[0]["lstm_recurrence"]
+                                   + 2 * online._n_mel_chunks)
+    assert mrf.launches == {k: n + 2 * calls["gen"] for k, n in before[1].items()}
+    assert mbconv.launches == before[2] + calls["cnn"]
+    cpu, _, _ = stream("cpu")
+    assert card[0].shape == cpu[0].shape == (37 * 420,)
+    for name, c, r, tol in zip(("audio", "mel_db"), card, cpu, (1e-4, 1e-2)):
         np.testing.assert_allclose(c, r, atol=tol, rtol=0, err_msg=name)

@@ -82,7 +82,7 @@ def test_fused_pipeline_matches_jax_fused_serving(pipelines):
     assert sum(isinstance(m, FusedMBConv) for m in port.acoustic_model.modules()) == 1
     assert port.generator.fuse_modes == FUSED_MODE
     frames = (np.random.default_rng(53).random((13, 64, 64)) * 255).astype(np.uint8)
-    counts = (bilstm.launches, dict(mrf.launches), mbconv.launches)
+    counts = (dict(bilstm.launches), dict(mrf.launches), mbconv.launches)
     got = port(frames)
     ref = jax_pipe(frames)
     assert got[0].shape == (13 * 420,) and got[1].shape == got[2].shape == (13, 64)

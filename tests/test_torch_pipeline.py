@@ -100,7 +100,7 @@ def _close(name, got, ref):
 def test_pipeline_call_matches_jax_serving_path(pipelines):
     jax_pipe, port = pipelines
     frames = _video(23, 13)  # pads to 16: three masked replicate frames
-    launches = bilstm.launches
+    launches = dict(bilstm.launches)
     got = port(frames)
     ref = jax_pipe(frames)
     assert got[0].shape == (13 * 420,) and got[1].shape == (13, 64)
