@@ -13,9 +13,11 @@ builds every kernel from `mri2speech_tpu_torch/csrc/`, then:
    K1 (BiLSTM recurrence), K3 (MRF stage, both entry points, at the four
    stages of a 250-frame request and of a 48-frame online generator window,
    plus ragged batch-2 cases) and K4 (MBConv block, at its three B2 shapes
-   with 256 frames and with a 16-frame online chunk), K3 and K4 in both
-   operand types (bf16, the path's, and fp32); the bf16 limit is set below a
-   control, the fp32-operand kernel against the bf16 plain version;
+   with 256 frames and with a 16-frame online chunk, each of its three launches
+   timed on its own, and at frames of other sizes and bf16 input), K3 and
+   K4 in both operand types (bf16, the path's, and fp32); the bf16 limit is
+   set below a control, the fp32-operand kernel against the bf16 plain
+   version;
 3. serves a few requests through the full-width video -> speech pipeline
    (EfficientNetV2-B2, BiLSTM 640, HiFi-GAN 512 / rates 10,7,3,2; random
    weights from a seed, made in the JAX layout and carried across by
@@ -79,6 +81,9 @@ AUDIO_TOL = 1e-4
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+SFU_PER_CLOCK_SM = 16  # MUFU.EX2 / MUFU.RCP results a clock per SM, compute capability 9.0
+                       # (CUDA C++ Programming Guide, arithmetic instruction throughput)
+SMS = 132              # H100 SXM streaming multiprocessors
 FRAMES = 256       # the 250-frame request's bucket: the shapes K3 and K4 are timed at
 # K3/K4 kernel vs plain version on the card, as a fraction of max|plain|.
 # fp32 operands: sums in another order (FMAs vs cuDNN/cuBLAS). bf16 operands:
@@ -119,6 +124,10 @@ ONLINE_FRAMES = 250
 ONLINE_WINDOW = 3 * ONLINE_CHUNK  # a steady generator window at the defaults (K = 3)
 # where the fused path's K4 blocks sit in B2, and how many of each shape a request runs
 K4_BLOCKS = (("s3", 3, 16, 3), ("s4", 4, 16, 5), ("s5", 5, 8, 9))  # (name, stage, H=W, count)
+# K4 at frames of other sizes (N, H, W) on s3's weights: tiles with halos on both
+# axes, one tile a frame, many tiles a frame, and a large batch of small frames
+K4_ODD = ((1, 5, 5), (3, 7, 3), (2, 32, 32), (300, 8, 8))
+K4_LAUNCHES = ("mbconv_pool_kernel", "mbconv_gate_kernel", "mbconv_project_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -183,19 +192,91 @@ def k3_bound(B: int, T: int, C: int, width: int, units: int = 3, k_sum: int = 21
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k4_bound(N: int, HW: int, C: int, E: int, R: int):
+SILU_PROBE = r"""
+#include "tile_mma.cuh"
+extern "C" __global__ void silu_mufu(const float* x, float* y) {
+  y[threadIdx.x] = m2s::siluf_(x[threadIdx.x]);
+}
+// every fp32 bit pattern: the kernels' sigmoid and SiLU against the IEEE division
+extern "C" __global__ void silu_all(unsigned long long* out) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)i);
+    const float ws = 1.0f / (1.0f + expf(-x));
+    const float gs = m2s::sigmoidf_(x), g = m2s::siluf_(x), w = x * ws;
+    const bool same = (__float_as_uint(gs) == __float_as_uint(ws) || (gs != gs && ws != ws)) &&
+                      (__float_as_uint(g) == __float_as_uint(w) || (g != g && w != w));
+    if (!same) {
+      atomicAdd(&out[0], 1ull);
+      atomicMin(&out[1], i);
+      atomicMax(&out[2], i);
+    }
+  }
+}
+extern "C" int silu_check(unsigned long long* out) {
+  silu_all<<<132 * 16, 256>>>(out);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def silu_probe(torch) -> dict:
+    """The kernels' SiLU (`csrc/tile_mma.cuh::siluf_`), built with the kernels' nvcc flags.
+
+    Counts the MUFU instructions that `cuobjdump -sass` shows for one SiLU
+    before the first EXIT (the special-function work the K4 bound charges),
+    reads `nvidia-smi`'s clocks.max.sm for the rate SFU_PER_CLOCK_SM x SMS x
+    clock, and runs sigmoid and SiLU on every fp32 bit pattern against
+    1.0f / (1.0f + expf(-x)) with the IEEE division: mismatches are counted,
+    with the first and last bit pattern that differs.
+    """
+    import ctypes
+
+    from mri2speech_tpu_torch.ops import _build
+
+    nvcc = _build.find_nvcc()
+    work = _build.BUILD_DIR / "silu_probe"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "probe.cu").write_text(SILU_PROBE)
+    lib = work / "libsilu_probe.so"
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+                    str(work / "probe.cu")], check=True, capture_output=True, timeout=300)
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(lib)],
+                          check=True, capture_output=True, text=True, timeout=60).stdout
+    body = next(f for f in sass.split("Function : ")[1:] if f.startswith("silu_mufu"))
+    mufu = [line.split("MUFU")[1].split()[0] for line in body.split("EXIT")[0].splitlines()
+            if "MUFU" in line]
+    check(len(mufu) > 0, "no MUFU instruction found in the SiLU probe's SASS")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    out = torch.tensor([0, -1, 0], dtype=torch.int64, device="cuda")  # -1: all bits set
+    fn = ctypes.CDLL(str(lib)).silu_check
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    check(fn(out.data_ptr()) == 0, "SiLU probe kernel failed")
+    n, lo, hi = (int(v) & 0xFFFFFFFFFFFFFFFF for v in out.cpu().tolist())
+    as_float = lambda bits: float(np.array([bits], np.uint32).view(np.float32)[0])
+    return {"mufu_per_silu": len(mufu), "mufu": mufu, "clock_mhz": clock_mhz,
+            "per_s": SFU_PER_CLOCK_SM * SMS * clock_mhz * 1e6, "mismatches": n,
+            "mismatch_range": (as_float(lo), as_float(hi)) if n else None}
+
+
+def k4_bound(N: int, HW: int, C: int, E: int, R: int, sfu: dict):
     """Least time for one MBConv block with bf16 operands: (ms, "bytes" | "operations").
 
-    Operations: the two 1x1 products and the two SE products on the bf16
-    tensor cores, and the depthwise 3x3 (9 multiply-adds per output) in fp32
-    on the CUDA cores; the two pipes can run at once, so the longer of the
-    two counts. Bytes: x read once, the output written once, the weights read
-    once.
+    Operations, three pipes that can run at once, so the longest counts: the
+    two 1x1 products and the two SE products on the bf16 tensor cores; the
+    depthwise 3x3 (9 multiply-adds per output) in fp32 on the CUDA cores; and
+    the special-function units, which evaluate the 2 x N x HW x E SiLUs of
+    the block (after pw and after the depthwise) and the SE's N x R SiLUs
+    and N x E sigmoids at sfu["mufu_per_silu"] MUFU instructions each.
+    Bytes: x read once, the output written once, the weights read once.
     """
     mm = 2 * N * HW * 2 * C * E + 2 * N * 2 * E * R
     dw = 2 * N * HW * 9 * E
+    silu = 2 * N * HW * E + N * (E + R)
     nbytes = 2 * N * HW * C * 4 + 2 * (2 * C * E + 2 * E * R) + 4 * (9 * E + 3 * E + R + C)
-    t_ops = max(mm / BF16_PEAK, dw / FP32_PEAK)  # the two pipes run at once
+    t_ops = max(mm / BF16_PEAK, dw / FP32_PEAK, silu * sfu["mufu_per_silu"] / sfu["per_s"])
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -476,52 +557,111 @@ def phase_k3(torch, mrf, gen):
     return cases
 
 
-def phase_k4(torch, mbconv, model):
+def launch_ms(torch, fn, keys, reps: int = 10):
+    """Device time per call of fn() of the kernels whose names hold each of keys
+    (torch.profiler over reps warm calls); None if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(keys, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        for k in keys:
+            if k in e.key:
+                out[k] += us / 1e3 / reps
+    return out if any(out.values()) else None
+
+
+def phase_k4(torch, mbconv, model, sfu):
     """K4 at its three B2 block shapes with 256 frames (a request's bucket) and
-    with 16 (an online CNN chunk), in both operand types.
+    with 16 (an online CNN chunk), in both operand types; then at frames of
+    other sizes (K4_ODD) and with bf16 x.
 
     Weights: the full-width encoder's own blocks s3_b1, s4_b1, s5_b1
-    (seeded), BatchNorm folded. Timed in bf16; at 256 frames also the plain
-    version and the unfused fp32 InvertedResidual through cuDNN (the library
-    yardstick).
+    (seeded), BatchNorm folded. Timed in bf16, each of its three launches on
+    its own too; at 256 frames also the plain version and the unfused fp32
+    InvertedResidual through cuDNN (the library yardstick). bf16 x must give
+    the kernel's fp32-x output rounded to bf16, bit for bit: the kernel reads
+    the same values either way and rounds only when it stores.
     """
     g = torch.Generator(device="cpu").manual_seed(4)
     cases = []
+
+    def run(x, w):
+        return lambda dtype=torch.bfloat16: mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype,
+                                                                       layout="nchw")
+
     for N in (FRAMES, ONLINE_CHUNK):
         for name, si, hw, count in K4_BLOCKS:
             block = model.cnn.backbone.blocks[si][1]
             w = mbconv.MBConvWeights.from_block(block)
             C, E, R = w.dims
             x = (torch.randn(N, C, hw, hw, generator=g) * 0.5).cuda()
-            tag = f"{name} N={N} {hw}x{hw} C={C} E={E} R={R}"
-            errs = _hold(
-                "K4", tag,
-                lambda dtype: mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype, layout="nchw"),
-                lambda dtype: mbconv.mbconv_block_reference(x, w, dtype))
+            plan = mbconv.tile_plan(N, hw, hw, C, E, R)
+            tag = (f"{name} N={N} {hw}x{hw} C={C} E={E} R={R} (tiles {plan.th}x{plan.tw}, "
+                   f"{N * plan.tiles} CTAs, E split {plan.e_splits})")
+            errs = _hold("K4", tag, run(x, w), lambda dtype: mbconv.mbconv_block_reference(x, w, dtype))
             case = dict(name=name, count=count, N=N, HW=hw * hw, C=C, E=E, R=R,
                         err_bf16=errs["bf16"][0], err_fp32=errs["fp32"][0],
                         control=errs["control"])
             with torch.inference_mode():
-                kernel_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(x, w, layout="nchw"))
+                kernel_ms = cuda_ms(run(x, w))
+                split = launch_ms(torch, run(x, w), K4_LAUNCHES)
+            split_txt = ("launches not measured (no profiler device time)" if split is None else
+                         f"launch 1 (pool) {split[K4_LAUNCHES[0]]:.4f} ms, 2 (gate) "
+                         f"{split[K4_LAUNCHES[1]]:.4f} ms, 3 (project) "
+                         f"{split[K4_LAUNCHES[2]]:.4f} ms (torch.profiler, mean of 10)")
+            if split is not None:
+                case.update(pool_ms=split[K4_LAUNCHES[0]], gate_ms=split[K4_LAUNCHES[1]],
+                            project_ms=split[K4_LAUNCHES[2]])
+            bound_ms, bound_by = k4_bound(N, hw * hw, C, E, R, sfu)
+            case.update(bound_ms=bound_ms, bound_by=bound_by)
             if N == ONLINE_CHUNK:
                 case["online_ms"] = kernel_ms
-                print(f"[k4] {tag} (online CNN chunk, x{count}): kernel bf16 {kernel_ms:.4f} ms",
-                      flush=True)
+                print(f"[k4] {tag} (online CNN chunk, x{count}): kernel bf16 {kernel_ms:.4f} ms; "
+                      f"{split_txt}; bound {bound_ms:.6f} ms ({bound_by})", flush=True)
                 cases.append(case)
                 continue
             with torch.inference_mode():
-                fp32_ms = cuda_ms(lambda: mbconv.mbconv_block_pallas(
-                    x, w, mxu_dtype=torch.float32, layout="nchw"), reps=5)
+                fp32_ms = cuda_ms(lambda: run(x, w)(torch.float32), reps=5)
                 plain_ms = cuda_ms(lambda: mbconv.mbconv_block_reference(x, w, torch.bfloat16))
                 library_ms = cuda_ms(lambda: block(x))
-            bound_ms, bound_by = k4_bound(N, hw * hw, C, E, R)
             case.update(kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms, plain_ms=plain_ms,
-                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                        library_ms=library_ms)
             cases.append(case)
-            print(f"[k4] {tag} (x{count} per request): kernel bf16 {kernel_ms:.4f} ms, fp32 "
-                  f"operands {fp32_ms:.4f} ms, plain (bf16) {plain_ms:.4f} ms, unfused "
-                  f"InvertedResidual fp32 cuDNN {library_ms:.4f} ms; bound {bound_ms:.6f} ms "
-                  f"({bound_by})", flush=True)
+            print(f"[k4] {tag} (x{count} per request): kernel bf16 {kernel_ms:.4f} ms; "
+                  f"{split_txt}; fp32 operands {fp32_ms:.4f} ms, plain (bf16) {plain_ms:.4f} ms, "
+                  f"unfused InvertedResidual fp32 cuDNN {library_ms:.4f} ms; bound "
+                  f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+    block = model.cnn.backbone.blocks[3][1]
+    w = mbconv.MBConvWeights.from_block(block)
+    C, E, R = w.dims
+    for N, h, wd in K4_ODD:
+        x = (torch.randn(N, C, h, wd, generator=g) * 0.5).cuda()
+        plan = mbconv.tile_plan(N, h, wd, C, E, R)
+        tag = (f"s3 weights N={N} {h}x{wd} C={C} E={E} R={R} (tiles {plan.th}x{plan.tw}, "
+               f"{N * plan.tiles} CTAs)")
+        errs = _hold("K4", tag, run(x, w), lambda dtype: mbconv.mbconv_block_reference(x, w, dtype))
+        cases.append(dict(name="odd", N=N, H=h, W=wd, C=C, E=E, R=R, err_bf16=errs["bf16"][0],
+                          err_fp32=errs["fp32"][0], control=errs["control"]))
+    for N, h in ((ONLINE_CHUNK, 16), (3, 5)):  # bf16 x: s3's weights, an online chunk and an odd frame
+        xb = (torch.randn(N, C, h, h, generator=g) * 0.5).cuda().to(torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            got, want = run(xb, w)(dtype), run(xb.float(), w)(dtype)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16, f"K4 bf16 x: output {got.dtype}")
+            check(torch.equal(got, want.to(torch.bfloat16)),
+                  f"K4 bf16 x N={N} {h}x{h} operands {dtype}: not the fp32-x output rounded")
+        print(f"[k4] bf16 x N={N} {h}x{h} C={C}: output bf16, equal bit for bit to the fp32-x "
+              "output rounded to bf16, in both operand types", flush=True)
     return cases
 
 
@@ -673,8 +813,9 @@ KERNEL_GROUPS = (  # substrings of kernel names -> the port's kernel they belong
     ("lstm_step_kernel", "K1/K2 lstm recurrence"),
     ("causal_conv_kernel", "K3 mrf_stage: convs"),
     ("branch_mean_kernel", "K3 mrf_stage: branch mean"),
-    ("mbconv_expand_kernel", "K4 mbconv_block: pass 1 (pw, dw, pool)"),
-    ("mbconv_project_kernel", "K4 mbconv_block: pass 2 (SE gate, pwl)"),
+    ("mbconv_pool_kernel", "K4 mbconv_block: launch 1 (pw, dw, pool)"),
+    ("mbconv_gate_kernel", "K4 mbconv_block: launch 2 (SE gate)"),
+    ("mbconv_project_kernel", "K4 mbconv_block: launch 3 (pw, dw, pwl)"),
 )
 
 
@@ -1121,6 +1262,12 @@ def kernel_rows(k1_cases, k2a_cases, k2b_cases, k3_cases, k4_cases, paths):
             "shape": [{k: c[k] for k in ("B", "T", "C", "N", "HW", "E", "R", "count") if k in c}
                       for c in path],
         })
+        if not is_k3 and all("pool_ms" in c for c in path + online_cases):
+            rows[-1]["launch_ms"] = {  # each of K4's three launches, from torch.profiler
+                f"{where}{name}": _per_request(cases, f"{name}_ms")
+                for where, cases in (("", path), ("online_", online_cases))
+                for name in ("pool", "gate", "project")}
+            rows[-1]["online_bound_ms"] = _per_request(online_cases, "bound_ms")
     return rows
 
 
@@ -1160,7 +1307,20 @@ def main() -> int:
     rng = np.random.default_rng(0)
     pipe = build_pipeline("cuda", seed=0)
     k3_cases = phase_k3(torch, mrf, pipe.generator)
-    k4_cases = phase_k4(torch, mbconv, pipe.acoustic_model)
+    sfu = silu_probe(torch)
+    print(f"[k4-bound] SiLU probe (the kernels' build, cuobjdump -sass): {sfu['mufu_per_silu']} "
+          f"MUFU per SiLU ({', '.join(sfu['mufu'])}); clocks.max.sm {sfu['clock_mhz']:g} MHz; "
+          f"special-function rate {sfu['per_s']:.4g}/s ({SFU_PER_CLOCK_SM} a clock x {SMS} SMs)",
+          flush=True)
+    print(f"[k4-silu] sigmoid and SiLU of every fp32 x against x * (1.0f / (1.0f + expf(-x))): "
+          f"{sfu['mismatches']} bit patterns differ"
+          + (f", x from {sfu['mismatch_range'][0]!r} to {sfu['mismatch_range'][1]!r}"
+             if sfu["mismatches"] else " (bit for bit)"), flush=True)
+    # the rescaled reciprocal may round twice only where 1/(1 + e^-x) is subnormal
+    check(sfu["mismatches"] == 0 or (-88.73 < min(sfu["mismatch_range"])
+                                     and max(sfu["mismatch_range"]) < -87.33),
+          f"the kernels' SiLU differs from the IEEE division outside the subnormal range: {sfu}")
+    k4_cases = phase_k4(torch, mbconv, pipe.acoustic_model, sfu)
 
     names = ("bilstm_recurrence", "mrf_stage_pallas", "mrf_stage_pallas_v2", "mbconv_block_pallas")
     unfused = phase_pipeline(torch, dict(zip(names, (1, 0, 0, 0))), pipe, rng, "pipeline")

@@ -123,7 +123,22 @@ __device__ __forceinline__ int acc_col(int ni, int q) {
   return ni * 8 + 2 * (threadIdx.x & 3) + (q & 1);
 }
 
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+// 1 / d for d >= 1, rounded as the IEEE division 1.0f / d rounds, without the
+// division's slow-path branch, so the compiler can interleave several: MUFU.RCP
+// and one Newton step with FMA on d / 4 (exact, and 4 / d stays normal), then
+// the exact * 1/4, which rounds a second time only where 1/d is subnormal (d >
+// 2^126); 0 for d = inf. chip_smoke.py holds sigmoidf_ and siluf_ against the
+// division for every fp32 x.
+__device__ __forceinline__ float rcp_ge1(float d) {
+  const float ds = d * 0.25f;
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(ds));
+  r = fmaf(fmaf(-ds, r, 1.0f), r, r) * 0.25f;
+  return d == __int_as_float(0x7f800000) ? 0.0f : r;
+}
+
+// precise expf (not __expf): built without --use_fast_math
+__device__ __forceinline__ float sigmoidf_(float x) { return rcp_ge1(1.0f + expf(-x)); }
 __device__ __forceinline__ float siluf_(float x) { return x * sigmoidf_(x); }
 
 }  // namespace m2s

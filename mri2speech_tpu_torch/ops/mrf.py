@@ -20,7 +20,9 @@ The entry points keep the JAX signatures and the ``(B, T, C)`` layout;
 no copy. ``packed`` is the JAX package's per-tap block-diagonal layout
 (:func:`pack_mrf_stage_params`), or an :class:`MRFStageWeights`, which holds
 the per-branch taps and caches the kernel's layout per operand type and
-device, so the conversion stays out of the call. Input and output are fp32.
+device, so the conversion stays out of the call. x is fp32 or bf16: the
+stage computes in fp32 and returns x's type, as the JAX functions do (the
+wrapper casts; the kernel reads and writes fp32).
 
 A CUDA tensor launches the kernel, or raises. A CPU tensor runs the plain
 version.
@@ -38,6 +40,7 @@ from mri2speech_tpu_torch.ops import _build
 
 LRELU_SLOPE = 0.1
 MXU_DTYPES = (torch.bfloat16, torch.float32)
+IO_DTYPES = (torch.float32, torch.bfloat16)
 
 # Calls of the CUDA kernel per entry point (one per stage, whatever its internal
 # launches); the plain version is never counted.
@@ -218,8 +221,6 @@ def mrf_stage_reference(
 
 
 def _mrf_stage_cuda(name, x, weights, tiled, layout, mxu_dtype, B, C, T):
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
     nb, nu = len(weights.kernels), len(weights.dils)
     w_flat, b_flat = weights.kernel_layout(mxu_dtype, x.device)
     if layout == "btc":
@@ -272,8 +273,8 @@ def _mrf_stage(name, x, packed, channels, kernels, dils, mxu_dtype, layout, tile
         raise TypeError(f"mxu_dtype must be torch.bfloat16 or torch.float32, got {mxu_dtype}")
     if layout not in ("btc", "bct"):
         raise ValueError(f"layout must be 'btc' or 'bct', got {layout!r}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype} (bf16 input is not supported yet)")
+    if x.dtype not in IO_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     nb, C = len(kernels), channels
     width = nb * C if tiled else C
     if x.dim() != 3 or x.shape[2 if layout == "btc" else 1] != width:
@@ -281,12 +282,15 @@ def _mrf_stage(name, x, packed, channels, kernels, dils, mxu_dtype, layout, tile
         raise ValueError(f"x must be {want.format(width)}, got {tuple(x.shape)}")
     B, T = x.shape[0], x.shape[1 if layout == "btc" else 2]
     if x.is_cuda:
-        return _mrf_stage_cuda(name, x, weights, tiled, layout, mxu_dtype, B, C, T)
+        if not x.is_contiguous():
+            raise ValueError("x must be contiguous")
+        y = _mrf_stage_cuda(name, x.float(), weights, tiled, layout, mxu_dtype, B, C, T)
+        return y.to(x.dtype)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     xt = x.transpose(1, 2) if layout == "btc" else x  # (B, width, T)
     xs = [xt[:, j * C:(j + 1) * C] for j in range(nb)] if tiled else xt
-    y = mrf_stage_reference(xs, weights, mxu_dtype)
+    y = mrf_stage_reference(xs, weights, mxu_dtype).to(x.dtype)
     return y.transpose(1, 2).contiguous() if layout == "btc" else y
 
 

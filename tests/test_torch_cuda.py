@@ -20,6 +20,9 @@ Tolerances:
   (one bf16 ulp, 2^-8 relative), which then travels through the remaining
   products. Seen on the H100: K3 2.9e-6 to 4.1e-5 x max|ref| against
   controls 6.0e-5 to 2.0e-4; K4 6.3e-8 to 3.0e-5 against 4.2e-4 to 5.7e-4.
+* bf16 x into K3 and K4 (the output then is bf16): the limit above plus
+  half a bf16 ulp of the plain version's fp32 output, which the kernel's
+  output was rounded from.
 * the tiny fused pipeline, card vs CPU: mel_db 1e-2 dB, mel_log 2.5e-3,
   audio 1e-4, as chip_smoke.py's fp32 card-vs-CPU check.
 * the tiny online stream, card vs CPU: audio 1e-5, mel_db 1e-3 dB, as the
@@ -312,6 +315,77 @@ def test_mbconv_block_matches_plain_version_on_card(cuda_device, N, H, W, C, E, 
     torch.testing.assert_close(got_nchw.permute(0, 2, 3, 1), ref, atol=tol, rtol=0)
 
 
+def _assert_bf16_close(got, ref, tol):
+    """got (bf16, rounded from the kernel's fp32) against ref (fp32): within tol + half an ulp."""
+    assert got.dtype == torch.bfloat16
+    half_ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 8)
+    assert ((got.float() - ref).abs() <= tol + half_ulp).all(), (got.float() - ref).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["v1", "v2"])
+def test_mrf_stage_bf16_input_on_card(cuda_device, entry):
+    """bf16 x: the stage runs in fp32 and returns bf16, as the JAX entry points."""
+    C, B, T = 40, 2, 300
+    w = _mrf_weights(C, seed=C)
+    tiled = entry == "v1"
+    x = torch.from_numpy((np.random.default_rng(T).standard_normal(
+        (B, T, 3 * C if tiled else C)) * 0.5).astype(np.float32)).to(cuda_device)
+    xb = x.to(torch.bfloat16)
+    fn = mrf.mrf_stage_pallas if tiled else mrf.mrf_stage_pallas_v2
+    kw = dict(channels=C, kernels=MRF_KERNELS, dils=MRF_DILS)
+    before = mrf.launches[fn.__name__]
+    got = fn(xb, w, **kw)
+    torch.cuda.synchronize()
+    assert mrf.launches[fn.__name__] == before + 1
+    xt = xb.float().transpose(1, 2)
+    xs = [xt[:, j * C:(j + 1) * C] for j in range(3)] if tiled else xt
+    ref = mrf.mrf_stage_reference(xs, w, torch.bfloat16).transpose(1, 2)
+    tol = _tol(lambda dt: fn(xb.float(), w, **dict(kw, mxu_dtype=dt)), torch.bfloat16, ref)
+    _assert_bf16_close(got, ref, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("N,H,W,C,E,R", [(1, 5, 5, 40, 100, 10), (3, 7, 3, 40, 100, 10),
+                                         (2, 32, 32, 40, 100, 10), (300, 8, 8, 40, 100, 10),
+                                         (2, 6, 6, 200, 300, 50)])
+def test_mbconv_block_any_frame_size_on_card(cuda_device, N, H, W, C, E, R, dtype):
+    """Frames of any size and batch (tiles with halos on both axes; one tile per frame;
+    many tiles; C past 128), NHWC and NCHW."""
+    w = _mbconv_weights(C, E, R, seed=E + H)
+    x = torch.from_numpy((np.random.default_rng(N + W).standard_normal((N, H, W, C)) * 0.5)
+                         .astype(np.float32)).to(cuda_device)
+    before = mbconv.launches
+    got = mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype)
+    got_nchw = mbconv.mbconv_block_pallas(x.permute(0, 3, 1, 2).contiguous(), w,
+                                          mxu_dtype=dtype, layout="nchw")
+    torch.cuda.synchronize()
+    assert mbconv.launches == before + 2
+    ref = mbconv.mbconv_block_reference(x.permute(0, 3, 1, 2), w, dtype).permute(0, 2, 3, 1)
+    tol = _tol(lambda dt: mbconv.mbconv_block_pallas(x, w, mxu_dtype=dt), dtype, ref)
+    torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+    torch.testing.assert_close(got_nchw.permute(0, 2, 3, 1), ref, atol=tol, rtol=0)
+    assert torch.equal(mbconv.mbconv_block_pallas(x, w, mxu_dtype=dtype), got)  # repeats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_mbconv_block_bf16_input_on_card(cuda_device, dtype):
+    """bf16 x read and written by the kernel itself; the residual adds the unrounded x."""
+    N, H, W, C, E, R = 4, 16, 16, 24, 144, 6
+    w = _mbconv_weights(C, E, R, seed=E)
+    xb = torch.from_numpy((np.random.default_rng(N).standard_normal((N, C, H, W)) * 0.5)
+                          .astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    got = mbconv.mbconv_block_pallas(xb, w, mxu_dtype=dtype, layout="nchw")
+    ref = mbconv.mbconv_block_reference(xb, w, dtype)
+    tol = _tol(lambda dt: mbconv.mbconv_block_pallas(xb.float(), w, mxu_dtype=dt, layout="nchw"),
+               dtype, ref)
+    _assert_bf16_close(got, ref, tol)
+    nhwc = mbconv.mbconv_block_pallas(xb.permute(0, 2, 3, 1).contiguous(), w, mxu_dtype=dtype)
+    torch.testing.assert_close(nhwc.permute(0, 3, 1, 2), got, atol=0, rtol=0)
+
+
 @pytest.mark.cuda
 def test_mrf_and_mbconv_wrappers_reject_bad_inputs(cuda_device):
     w = _mrf_weights(32, seed=1)
@@ -323,8 +397,12 @@ def test_mrf_and_mbconv_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         mrf.mrf_stage_pallas(x, w, channels=32)  # v1 takes 3C channels
     mw = _mbconv_weights(16, 64, 4, seed=2)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        mbconv.mbconv_block_pallas(torch.zeros(1, 5, 5, 16, device=cuda_device), mw)
+    # a 5x5 frame, refused until the kernel took frames of any size, computes
+    x5 = torch.from_numpy((np.random.default_rng(5).standard_normal((1, 5, 5, 16)) * 0.5)
+                          .astype(np.float32)).to(cuda_device)
+    ref = mbconv.mbconv_block_reference(x5.permute(0, 3, 1, 2), mw, torch.float32)
+    torch.testing.assert_close(mbconv.mbconv_block_pallas(x5, mw, mxu_dtype=torch.float32),
+                               ref.permute(0, 2, 3, 1), atol=ATOL, rtol=0)
     with pytest.raises(TypeError):
         mbconv.mbconv_block_pallas(torch.zeros(1, 8, 8, 16, device=cuda_device).double(), mw)
 

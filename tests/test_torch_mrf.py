@@ -14,6 +14,8 @@ Tolerances:
   CPU they differ by fp32 reordering alone (1.2e-7 seen: no rounding
   flipped). The control, the port with fp32 operands held against the JAX
   bf16 output, must fail this limit; it differs by 4.7e-4 to 5.4e-4.
+* bf16 x (the output then is bf16 on both sides): each element within one
+  bf16 ulp of JAX's, since both round the same fp32 stage output.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -94,6 +96,30 @@ def test_stage_matches_jax_pallas(resblocks, entry, dtype, T):
         f32 = port_fn(torch.from_numpy(x), packed, mxu_dtype=torch.float32, **kw)
         assert np.abs(f32.numpy() - ref).max() > TOL
     assert mrf.launches == launches  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("entry", ["v1", "v2"])
+def test_bf16_input_matches_jax(resblocks, entry):
+    """bf16 x: computed in fp32, returned in bf16, as `pallas_mrf.py:273, 337, 374, 421`."""
+    packed = jax_mrf.pack_mrf_stage_params(resblocks, KERNELS, DILS)
+    width = 3 * C if entry == "v1" else C
+    x = torch.from_numpy((np.random.default_rng(33).standard_normal((1, 40, width)) * 0.5)
+                         .astype(np.float32)).to(torch.bfloat16)
+    kw = dict(channels=C, kernels=KERNELS, dils=DILS)
+    jax_fn = jax_mrf.mrf_stage_pallas if entry == "v1" else jax_mrf.mrf_stage_pallas_v2
+    ref = jax_fn(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), packed, interpret=True,
+                 **kw)
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    port_fn = mrf.mrf_stage_pallas if entry == "v1" else mrf.mrf_stage_pallas_v2
+    got = port_fn(x, packed, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 40, C)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), np.finfo(np.float32).tiny))) - 7)
+    diff = np.abs(got.float().numpy() - ref)
+    assert (diff <= ulp).all(), diff.max()
+    bct = port_fn(x.transpose(1, 2).contiguous(), packed, layout="bct", **kw)
+    assert bct.dtype == torch.bfloat16
+    torch.testing.assert_close(bct.transpose(1, 2), got, atol=0, rtol=0)
 
 
 def test_pack_matches_jax_and_unpack_inverts_it(resblocks):
