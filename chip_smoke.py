@@ -12,7 +12,9 @@ builds every kernel from `mri2speech_tpu_torch/csrc/`, then:
    library call that computes the same function (a yardstick only):
    K1 (BiLSTM recurrence), K3 (MRF stage, both entry points, at the four
    stages of a 250-frame request and of a 48-frame online generator window,
-   plus ragged batch-2 cases) and K4 (MBConv block, at its three B2 shapes
+   each launch timed on its own, plus ragged batch-2 cases, T below the
+   receptive field, widths 48 and 96 with B=3, bf16 input and two calls
+   that must agree bit for bit) and K4 (MBConv block, at its three B2 shapes
    with 256 frames and with a 16-frame online chunk, each of its three launches
    timed on its own, and at frames of other sizes and bf16 input), K3 and
    K4 in both operand types (bf16, the path's, and fp32); the bf16 limit is
@@ -59,6 +61,7 @@ kernels do.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -482,16 +485,62 @@ def _hold(kernel: str, tag: str, run, plain) -> dict:
     return out
 
 
+K3_LAUNCHES = ("mrf_units_kernel", "mrf_mean_kernel")
+# K3 beyond the path's shapes: T below the receptive field (120) and just above it
+# at both entries, and widths that are no power of two with B = 3
+K3_SHORT_T = (1, 7, 119, 121)
+K3_ODD_C = (("mrf_stage_pallas_v2", 48, 500), ("mrf_stage_pallas", 96, 300))
+
+
+def k3_launch_ms(torch, fn, launches: int, reps: int = 10):
+    """Device time of each of K3's `launches` launches in one call of fn(), in launch
+    order, and their names (torch.profiler over reps warm calls, the mean at each
+    position); None if the profiler did not see them all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and any(k in e.name for k in K3_LAUNCHES)), key=lambda e: e.time_range.start)
+    if len(ev) < launches * reps:
+        return None
+    ev = ev[-launches * reps:]  # a session may also report a late event of the one before
+    return [(("units" if K3_LAUNCHES[0] in ev[i].name else "mean"),
+             sum(ev[r * launches + i].time_range.elapsed_us() for r in range(reps)) / reps / 1e3)
+            for i in range(launches)]
+
+
+def _k3_weights(mrf, C: int, seed: int):
+    """Seeded taps N(0, 0.01) (the generator's init scale), biases N(0, 0.05)."""
+    rng = np.random.default_rng(seed)
+    resblocks = [{f"{n}_{u}": {"w": (rng.standard_normal((k, C, C)) * 0.01).astype(np.float32),
+                               "b": (rng.standard_normal(C) * 0.05).astype(np.float32)}
+                  for u in range(3) for n in ("convs1", "convs2")} for k in (3, 7, 11)]
+    return mrf.MRFStageWeights.from_resblocks(resblocks, (3, 7, 11), (1, 3, 5))
+
+
 def phase_k3(torch, mrf, gen):
     """K3 at the four MRF stages of a 250-frame request and of a steady online
-    generator window (48 frames), plus ragged batch-2 cases.
+    generator window (48 frames), at ragged batch-2 shapes, at T below the
+    receptive field and at widths that are no power of two.
 
-    Weights: the full-width generator's own stages (seeded). Each entry point
-    runs in the generator's (B, C, T) layout as the fused path calls it, is held
-    against the plain version in both operand types, and is timed in bf16;
-    at the request's shapes also the plain version and the port's unfused
-    fp32 ResBlock1 stack through cuDNN (the library yardstick, which the fused
-    path never calls).
+    Weights: the full-width generator's own stages (seeded), or seeded taps at
+    the generator's scale for the other widths. Each entry point runs in the
+    generator's (B, C, T) layout as the fused path calls it (the ragged cases
+    in the JAX (B, T, C) layout), is held against the plain version in both
+    operand types, must give the same bits twice, and at the stages' shapes
+    must give with bf16 x the fp32-x output rounded, bit for bit (the kernel
+    reads x's type itself). Every case is timed in bf16 (CUDA events), each
+    launch's device time from torch.profiler and the plan beside it; at the
+    request's shapes also the plain version and two library yardsticks
+    that the fused path never calls: the port's unfused ResBlock1 stack through
+    cuDNN in fp32, and the same stack on bf16 weights and activations (a
+    coarser function: its residual is bf16).
     """
     from mri2speech_tpu_torch.models.vocoder import FUSED_MODE
 
@@ -499,6 +548,50 @@ def phase_k3(torch, mrf, gen):
     h = gen.h
     nk = len(h["resblock_kernel_sizes"])
     cases = []
+
+    def entry(fn, w, C, xin, layout="bct"):
+        def kernel(dtype=torch.bfloat16, x=xin):
+            return fn(x, w, channels=C, kernels=w.kernels, dils=w.dils, mxu_dtype=dtype,
+                      layout=layout)
+        return kernel
+
+    def repeats(kernel, tag):
+        a, b = kernel(), kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"K3 {tag}: two calls on one input differ")
+
+    def timed(kernel, plan):
+        """(kernel ms by CUDA events, device ms by launch or None, printable text)."""
+        with torch.inference_mode():
+            kernel_ms = cuda_ms(kernel)
+            split = k3_launch_ms(torch, kernel, plan.kernel_launches)
+        text = (f"kernel bf16 {kernel_ms:.4f} ms; " + (
+            "launches not measured (no profiler device time)" if split is None else
+            "device time by launch " + " + ".join(f"{n} {t:.4f}" for n, t in split)
+            + f" = {sum(t for _, t in split):.4f} ms (torch.profiler, mean of 10)")
+            + f"; {'chain' if plan.chain else 'unit'} mode, {plan.ctas} CTAs of {plan.nw} "
+            f"channels (clusters of {plan.np}), time tiles {plan.tm}, ring {plan.stages}, "
+            f"{plan.smem} B shared")
+        return kernel_ms, split, text
+
+    def extra_case(name, i, B, T, C, errs, kernel, w, tag):
+        kernel_ms, split, text = timed(kernel, mrf.tile_plan(B, T, C, w.kernels, w.dils,
+                                                             torch.bfloat16))
+        print(f"[k3] {tag}: {text}", flush=True)
+        case = dict(name=name, stage=i, B=B, T=T, C=C, err_bf16=errs["bf16"][0],
+                    err_fp32=errs["fp32"][0], control=errs["control"], case_ms=kernel_ms)
+        if split is not None:
+            case["launch_ms"] = [t for _, t in split]
+        cases.append(case)
+
+    def bf16_input(kernel, xin, tag):
+        xb = xin.to(torch.bfloat16)
+        got, want = kernel(x=xb), kernel(x=xb.float())
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16, f"K3 bf16 x {tag}: output {got.dtype}")
+        check(torch.equal(got, want.to(torch.bfloat16)),
+              f"K3 bf16 x {tag}: not the fp32-x output rounded")
+
     # the online cases draw from a generator of their own: the other cases keep their inputs
     for frames, online, gx in ((FRAMES, False, g),
                                (ONLINE_WINDOW, True, torch.Generator().manual_seed(7))):
@@ -512,34 +605,41 @@ def phase_k3(torch, mrf, gen):
             name = fn.__name__
             x = (torch.randn(1, C, T, generator=gx) * 0.5).cuda()
             xin = x.repeat(1, nk, 1) if tiled else x
-
-            def kernel(dtype=torch.bfloat16):
-                return fn(xin, w, channels=C, kernels=w.kernels, dils=w.dils, mxu_dtype=dtype,
-                          layout="bct")
-
+            kernel = entry(fn, w, C, xin)
+            plan = mrf.tile_plan(1, T, C, w.kernels, w.dils, torch.bfloat16)
             tag = f"{name} stage {i} B=1 T={T} C={C}" + (" (online window)" if online else "")
             errs = _hold("K3", tag, kernel, lambda dtype: mrf.mrf_stage_reference(x, w, dtype))
+            repeats(kernel, tag)
+            bf16_input(kernel, xin, tag)
             case = dict(name=name, stage=i, B=1, T=T, C=C, err_bf16=errs["bf16"][0],
                         err_fp32=errs["fp32"][0], control=errs["control"])
-            with torch.inference_mode():
-                kernel_ms = cuda_ms(kernel)
+            kernel_ms, split, text = timed(kernel, plan)
+            bound_ms, bound_by = k3_bound(1, T, C, nk * C if tiled else C)
+            if split is not None:
+                case["launch_ms"] = [t for _, t in split]
             if online:
-                case["online_ms"] = kernel_ms
-                print(f"[k3] {tag}: kernel bf16 {kernel_ms:.4f} ms", flush=True)
+                case.update(online_ms=kernel_ms, bound_ms=bound_ms, bound_by=bound_by)
+                print(f"[k3] {tag}: {text}; bound {bound_ms:.6f} ms ({bound_by}); repeats bit "
+                      "for bit; bf16 x gives the fp32-x output rounded, bit for bit", flush=True)
                 cases.append(case)
                 continue
             blocks = list(gen.resblocks[i * nk:(i + 1) * nk])
+            blocks16 = [copy.deepcopy(b).to(torch.bfloat16) for b in blocks]
+            x16 = x.to(torch.bfloat16)
             with torch.inference_mode():
                 fp32_ms = cuda_ms(lambda: kernel(torch.float32), reps=5)
                 plain_ms = cuda_ms(lambda: mrf.mrf_stage_reference(x, w, torch.bfloat16), reps=5)
                 library_ms = cuda_ms(lambda: sum(b(x) for b in blocks) / nk)
-            bound_ms, bound_by = k3_bound(1, T, C, nk * C if tiled else C)
+                library16_ms = cuda_ms(lambda: sum(b(x16) for b in blocks16) / nk)
             case.update(kernel_ms=kernel_ms, kernel_fp32_ms=fp32_ms, plain_ms=plain_ms,
-                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                        library_ms=library_ms, library_bf16_ms=library16_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
             cases.append(case)
-            print(f"[k3] {tag}: kernel bf16 {kernel_ms:.4f} ms, fp32 operands {fp32_ms:.4f} ms, "
-                  f"plain (bf16) {plain_ms:.4f} ms, unfused ResBlock1 stack fp32 cuDNN "
-                  f"{library_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+            print(f"[k3] {tag}: {text}; fp32 operands {fp32_ms:.4f} ms, plain (bf16) "
+                  f"{plain_ms:.4f} ms, unfused ResBlock1 stack cuDNN fp32 {library_ms:.4f} ms, "
+                  f"the same stack in bf16 (a coarser function: bf16 residual) "
+                  f"{library16_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}); repeats bit for "
+                  "bit; bf16 x gives the fp32-x output rounded, bit for bit", flush=True)
     # ragged, several time tiles, batch 2, in the JAX (B, T, C) layout
     for i, fn, B, T in ((1, mrf.mrf_stage_pallas, 2, 1000), (3, mrf.mrf_stage_pallas_v2, 2, 3001)):
         w = gen.stage_weights(i)
@@ -548,12 +648,36 @@ def phase_k3(torch, mrf, gen):
         x = (torch.randn(B, T, nk * C if tiled else C, generator=g) * 0.5).cuda()
         xt = x.transpose(1, 2)
         xs = [xt[:, j * C:(j + 1) * C] for j in range(nk)] if tiled else xt
-        errs = _hold(
-            "K3", f"{fn.__name__} ragged B={B} T={T} C={C} (B, T, C) layout",
-            lambda dtype: fn(x, w, channels=C, kernels=w.kernels, dils=w.dils, mxu_dtype=dtype),
-            lambda dtype: mrf.mrf_stage_reference(xs, w, dtype).transpose(1, 2))
-        cases.append(dict(name=fn.__name__, stage=i, B=B, T=T, C=C, err_bf16=errs["bf16"][0],
-                          err_fp32=errs["fp32"][0], control=errs["control"]))
+        tag = f"{fn.__name__} ragged B={B} T={T} C={C} (B, T, C) layout"
+        kernel = entry(fn, w, C, x, layout="btc")
+        errs = _hold("K3", tag, kernel,
+                     lambda dtype: mrf.mrf_stage_reference(xs, w, dtype).transpose(1, 2))
+        repeats(kernel, tag)
+        extra_case(fn.__name__, i, B, T, C, errs, kernel, w, tag)
+    # T below the receptive field and just above it, at both entries
+    odd = [(fn, i, 1, T) for T in K3_SHORT_T
+           for fn, i in ((mrf.mrf_stage_pallas, 0), (mrf.mrf_stage_pallas_v2, 2))]
+    for fn, i, B, T in odd:
+        w = gen.stage_weights(i)
+        C = w.channels
+        tiled = fn is mrf.mrf_stage_pallas
+        x = (torch.randn(B, C, T, generator=g) * 0.5).cuda()
+        kernel = entry(fn, w, C, x.repeat(1, nk, 1) if tiled else x)
+        tag = f"{fn.__name__} short B={B} T={T} C={C}"
+        errs = _hold("K3", tag, kernel, lambda dtype: mrf.mrf_stage_reference(x, w, dtype))
+        repeats(kernel, tag)
+        extra_case(fn.__name__, i, B, T, C, errs, kernel, w, tag)
+    for name, C, T in K3_ODD_C:
+        fn = getattr(mrf, name)
+        w = _k3_weights(mrf, C, seed=C)
+        tiled = fn is mrf.mrf_stage_pallas
+        x = (torch.randn(3, C, T, generator=g) * 0.5).cuda()
+        kernel = entry(fn, w, C, x.repeat(1, nk, 1) if tiled else x)
+        tag = f"{name} B=3 T={T} C={C} (seeded taps)"
+        errs = _hold("K3", tag, kernel, lambda dtype: mrf.mrf_stage_reference(x, w, dtype))
+        repeats(kernel, tag)
+        extra_case(name, None, 3, T, C, errs, kernel, w, tag)
+    print(f"[k3] every case gave the same bits in two calls: {len(cases)} cases", flush=True)
     return cases
 
 
@@ -811,8 +935,8 @@ def phase_pipeline(torch, per_request, pipe, rng, tag: str):
 
 KERNEL_GROUPS = (  # substrings of kernel names -> the port's kernel they belong to
     ("lstm_step_kernel", "K1/K2 lstm recurrence"),
-    ("causal_conv_kernel", "K3 mrf_stage: convs"),
-    ("branch_mean_kernel", "K3 mrf_stage: branch mean"),
+    ("mrf_units_kernel", "K3 mrf_stage: unit chains"),
+    ("mrf_mean_kernel", "K3 mrf_stage: branch mean"),
     ("mbconv_pool_kernel", "K4 mbconv_block: launch 1 (pw, dw, pool)"),
     ("mbconv_gate_kernel", "K4 mbconv_block: launch 2 (SE gate)"),
     ("mbconv_project_kernel", "K4 mbconv_block: launch 3 (pw, dw, pwl)"),
@@ -1179,7 +1303,9 @@ def kernel_rows(k1_cases, k2a_cases, k2b_cases, k3_cases, k4_cases, paths):
     over the shapes one 250-frame request gives the entry point (K3 v1:
     stages 0-1, v2: stages 2-3; K4: 3 + 5 + 9 blocks), so ms, plain_ms,
     library_ms and bound_ms are per request; online_ms is the kernel's time
-    per steady generator window (K3) or CNN chunk (K4) online. launches: the
+    per steady generator window (K3) or CNN chunk (K4) online, online_bound_ms
+    its bound; launch_ms the device time of each launch (K3 by stage, K4 by
+    launch). launches: the
     count of the C entry on the path that runs it, with every path's count
     beside it; K1 and K2b share theirs (`bilstm_recurrence_f32`), and K2b's
     own Python entry is on no path, as in the JAX package.
@@ -1262,6 +1388,17 @@ def kernel_rows(k1_cases, k2a_cases, k2b_cases, k3_cases, k4_cases, paths):
             "shape": [{k: c[k] for k in ("B", "T", "C", "N", "HW", "E", "R", "count") if k in c}
                       for c in path],
         })
+        if is_k3:
+            rows[-1]["library_bf16_ms"] = _per_request(path, "library_bf16_ms")
+            rows[-1]["library_bf16_note"] = ("the same unfused ResBlock1 stacks on bf16 weights "
+                                             "and activations: a coarser function (bf16 residual)")
+            rows[-1]["online_bound_ms"] = _per_request(online_cases, "bound_ms")
+            rows[-1]["launch_ms"] = {  # device time of each launch, torch.profiler
+                f"stage {c['stage']}" + (" online" if "online_ms" in c else ""): c["launch_ms"]
+                for c in path + online_cases if "launch_ms" in c}
+            rows[-1]["other_cases"] = [  # ragged, short and odd-width cases
+                {k: c[k] for k in ("B", "T", "C", "case_ms", "launch_ms") if k in c}
+                for c in all_cases if "case_ms" in c]
         if not is_k3 and all("pool_ms" in c for c in path + online_cases):
             rows[-1]["launch_ms"] = {  # each of K4's three launches, from torch.profiler
                 f"{where}{name}": _per_request(cases, f"{name}_ms")

@@ -59,7 +59,7 @@
 //     warpgroups. The first product of each chain starts from nothing
 //     (scale-d 0), so no other instruction sets the accumulators and the
 //     compiler does not serialize the chain. fp32 operands run FMAs on the
-//     CUDA cores (tile_mma.cuh's accumulator layout), on chunks of 32 channels.
+//     CUDA cores (mma.sync's m16n8 accumulator layout), on chunks of 32 channels.
 //   * The elementwise phases are where the time goes (one CTA of 16 warps an
 //     SM); each thread works on two adjacent channels (8-byte shared loads
 //     and stores) with several independent chains in flight: the SiLU of `a`
@@ -83,13 +83,24 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <mutex>
 
+#include "hopper.cuh"
 #include "tile_mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using m2s::allow_smem;
+using m2s::bulk_copy;
+using m2s::fence_to_wgmma;
+using m2s::mbar_expect;
+using m2s::mbar_init;
+using m2s::mbar_init_fence;
+using m2s::mbar_wait;
+using m2s::wg_commit_wait;
+using m2s::wg_desc;
+using m2s::wg_fence;
+using m2s::Wgmma;
 
 constexpr int THREADS = 512;  // 16 warps
 constexpr int M_CAP = 256;    // pixels (tile + halo) a CTA's pw covers: 4 wgmma tiles of 64
@@ -140,105 +151,6 @@ __device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// ---- the chunk ring: bulk copies (the Tensor Memory Accelerator) completing on an
-// mbarrier per stage ----
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global to shared memory
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-// Waits for the barrier's phase `parity` to complete; traps after about a second
-// instead of hanging the card if a copy never arrives.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const long long t0 = clock64();
-  unsigned done = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > 2000000000LL) __trap();
-  }
-}
-
-// ---- bf16 products: wgmma (Hopper), operands in shared memory ----
-// Operand tiles use the core-matrix layout wgmma reads without swizzle: 8 rows x
-// 16 bytes contiguous, the K/8 core matrices of an 8-row group side by side, so
-// the descriptor's leading byte offset (next core matrix along K) is 128 and its
-// stride byte offset (next 8 rows) is K * 16.
-__device__ __forceinline__ uint64_t wg_desc(const void* tile, int K) {
-  const uint64_t addr = smem_addr(tile);
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)((K * 16) >> 4) << 32);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// shared memory written by the threads made visible to wgmma's reads (async proxy)
-__device__ __forceinline__ void fence_to_wgmma() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (m64 x N fp32, the warpgroup's accumulator) = A (64 x 16) @ B (N x 16)^T, + d if
-// accumulate (the first product of a chain starts from nothing: accumulators set
-// by other instructions inside a chain would make the compiler serialize the
-// products).
-// Thread t of the warpgroup holds d[4j + 2r + h] at row 16*(t/32) + (t%32)/4 + 8r,
-// column 8j + 2*(t%4) + h.
-template <int N>
-struct Wgmma;
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
 // d = A[rows 64*mt ..] @ B[rows n0 ..]^T over depth K (+ d if accumulate), both
 // tiles in the core-matrix layout
 template <int N>
@@ -257,7 +169,7 @@ __device__ __forceinline__ void wg_product(float (&d)[N / 2], const bf16* A, int
 // memory (leading dimensions lda, ldb), for the warp's first MR 16-row blocks
 // (block i is mb = m0 + MS*i) and every pair j of 8-column fragments (pair pb =
 // p0 + PS*j, columns pb*16 .. pb*16+15; the caller pads B so each exists), with
-// the accumulator layout of tile_mma.cuh: acc[i][2j+h][q] is row mb*16 + g +
+// mma.sync's m16n8 accumulator layout: acc[i][2j+h][q] is row mb*16 + g +
 // 8*(q>>1), column pb*16 + h*8 + 2t + (q&1).
 template <int MR, int MS, int PS, int MI, int NI>
 __device__ __forceinline__ void mma_blocks(float (&acc)[MI][NI][4], const float* A, int lda,
@@ -869,31 +781,6 @@ __global__ void __launch_bounds__(THREADS, 1) mbconv_project_kernel(Args a) {
                   to_f(x[col * a.sc + p * a.sp]) + (out[i][f][2 * r + h] + a.b3[col]));
         }
     }
-}
-
-// Raises a kernel's dynamic shared memory limit on the current device to the
-// largest size asked so far (one driver call per kernel, device and new maximum).
-cudaError_t allow_smem(const void* kernel, size_t smem) {
-  struct Entry {
-    const void* kernel;
-    int device;
-    size_t bytes;
-  };
-  static std::mutex mu;
-  static Entry set[256];
-  static int n_set = 0;
-  int device;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  int i = 0;
-  while (i < n_set && (set[i].kernel != kernel || set[i].device != device)) ++i;
-  if (i < n_set && set[i].bytes >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (i == n_set && n_set < 256) ++n_set;
-  if (i < n_set) set[i] = Entry{kernel, device, smem};
-  return cudaSuccess;
 }
 
 template <typename K>

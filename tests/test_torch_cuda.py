@@ -22,7 +22,10 @@ Tolerances:
   controls 6.0e-5 to 2.0e-4; K4 6.3e-8 to 3.0e-5 against 4.2e-4 to 5.7e-4.
 * bf16 x into K3 and K4 (the output then is bf16): the limit above plus
   half a bf16 ulp of the plain version's fp32 output, which the kernel's
-  output was rounded from.
+  output was rounded from; and bit for bit the kernel's fp32-x output
+  rounded (the kernel reads the same values either way and rounds only when
+  it stores).
+* K3 twice on one input: bit for bit (no atomics).
 * the tiny fused pipeline, card vs CPU: mel_db 1e-2 dB, mel_log 2.5e-3,
   audio 1e-4, as chip_smoke.py's fp32 card-vs-CPU check.
 * the tiny online stream, card vs CPU: audio 1e-5, mel_db 1e-3 dB, as the
@@ -255,12 +258,24 @@ def _tol(run, dtype, ref):
     return min(BF16_REL * ref.abs().max().item(), CONTROL_SHARE * control)
 
 
+MRF_SHAPES = [  # (entry, B, T, C)
+    ("v1", 2, 300, 40), ("v2", 2, 300, 40), ("v1", 1, 1000, 96), ("v2", 1, 1000, 96),
+    # T below the receptive field (120) and just above it; both modes (chain: C <= 64)
+    ("v2", 1, 1, 32), ("v1", 1, 7, 40), ("v2", 2, 119, 64), ("v1", 1, 121, 32),
+    ("v1", 1, 119, 256), ("v2", 1, 7, 128),
+    # T no multiple of the time tile, at each entry and in each mode
+    ("v1", 2, 1000, 128), ("v2", 1, 3001, 32),
+    # widths that are no power of two, B = 3
+    ("v2", 3, 300, 48), ("v1", 3, 300, 96),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("entry,B,T,C", [("v1", 2, 300, 40), ("v2", 2, 300, 40),
-                                         ("v1", 1, 1000, 96), ("v2", 1, 1000, 96)])
+@pytest.mark.parametrize("entry,B,T,C", MRF_SHAPES)
 def test_mrf_stage_matches_plain_version_on_card(cuda_device, entry, B, T, C, dtype):
-    """Ragged multi-tile T, a partial output-channel block, both entry points and layouts."""
+    """Ragged multi-tile T, T below the receptive field, partial output-channel blocks,
+    widths that are no power of two, both entry points, modes and layouts."""
     w = _mrf_weights(C, seed=C)
     tiled = entry == "v1"
     x = torch.from_numpy((np.random.default_rng(T).standard_normal(
@@ -325,24 +340,48 @@ def _assert_bf16_close(got, ref, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["v1", "v2"])
 def test_mrf_stage_bf16_input_on_card(cuda_device, entry):
-    """bf16 x: the stage runs in fp32 and returns bf16, as the JAX entry points."""
-    C, B, T = 40, 2, 300
+    """bf16 x: the stage runs in fp32 and returns bf16, as the JAX entry points. The
+    kernel reads and writes bf16 itself: its output is the fp32-x output rounded, bit for
+    bit (chain mode at C=40, unit mode at C=128; both layouts)."""
+    for C, B, T in ((40, 2, 300), (128, 1, 500)):
+        w = _mrf_weights(C, seed=C)
+        tiled = entry == "v1"
+        x = torch.from_numpy((np.random.default_rng(T).standard_normal(
+            (B, T, 3 * C if tiled else C)) * 0.5).astype(np.float32)).to(cuda_device)
+        xb = x.to(torch.bfloat16)
+        fn = mrf.mrf_stage_pallas if tiled else mrf.mrf_stage_pallas_v2
+        kw = dict(channels=C, kernels=MRF_KERNELS, dils=MRF_DILS)
+        before = mrf.launches[fn.__name__]
+        got = fn(xb, w, **kw)
+        torch.cuda.synchronize()
+        assert mrf.launches[fn.__name__] == before + 1
+        xt = xb.float().transpose(1, 2)
+        xs = [xt[:, j * C:(j + 1) * C] for j in range(3)] if tiled else xt
+        ref = mrf.mrf_stage_reference(xs, w, torch.bfloat16).transpose(1, 2)
+        tol = _tol(lambda dt: fn(xb.float(), w, **dict(kw, mxu_dtype=dt)), torch.bfloat16, ref)
+        _assert_bf16_close(got, ref, tol)
+        assert torch.equal(got, fn(xb.float(), w, **kw).to(torch.bfloat16))
+        bct = fn(xb.transpose(1, 2).contiguous(), w, layout="bct", **kw)
+        assert bct.dtype == torch.bfloat16 and torch.equal(bct.transpose(1, 2), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("entry,B,T,C", [("v2", 2, 3001, 32), ("v1", 1, 1000, 128),
+                                         ("v1", 1, 480, 256), ("v2", 3, 300, 48)])
+def test_mrf_stage_repeats_bit_for_bit_on_card(cuda_device, entry, B, T, C, dtype):
+    """The branch mean is summed in a fixed order, with no atomics: two calls on one
+    input give the same bits."""
     w = _mrf_weights(C, seed=C)
     tiled = entry == "v1"
     x = torch.from_numpy((np.random.default_rng(T).standard_normal(
-        (B, T, 3 * C if tiled else C)) * 0.5).astype(np.float32)).to(cuda_device)
-    xb = x.to(torch.bfloat16)
+        (B, 3 * C if tiled else C, T)) * 0.5).astype(np.float32)).to(cuda_device)
     fn = mrf.mrf_stage_pallas if tiled else mrf.mrf_stage_pallas_v2
-    kw = dict(channels=C, kernels=MRF_KERNELS, dils=MRF_DILS)
-    before = mrf.launches[fn.__name__]
-    got = fn(xb, w, **kw)
+    kw = dict(channels=C, kernels=MRF_KERNELS, dils=MRF_DILS, mxu_dtype=dtype, layout="bct")
+    first = fn(x, w, **kw)
+    second = fn(x, w, **kw)
     torch.cuda.synchronize()
-    assert mrf.launches[fn.__name__] == before + 1
-    xt = xb.float().transpose(1, 2)
-    xs = [xt[:, j * C:(j + 1) * C] for j in range(3)] if tiled else xt
-    ref = mrf.mrf_stage_reference(xs, w, torch.bfloat16).transpose(1, 2)
-    tol = _tol(lambda dt: fn(xb.float(), w, **dict(kw, mxu_dtype=dt)), torch.bfloat16, ref)
-    _assert_bf16_close(got, ref, tol)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
